@@ -1,0 +1,76 @@
+"""linearmpc_tpu_torch: the PyTorch / CUDA port of linearmpc_tpu.
+
+Linear Model Predictive Control on an NVIDIA GPU: condensation of
+constrained tracking MPC into dense multi-parametric QPs (host NumPy),
+a batched dual active-set solver whose small-m tier runs on two
+hand-written CUDA kernels (``ops/bulk.py``, ``ops/polish.py``), closed-loop
+simulation and batched rollout, and Kalman / offset-free observers.
+
+The package imports torch and NumPy only, never ``jax`` or
+``linearmpc_tpu``. Modules of the JAX package not ported yet (explicit,
+certify, invariant, codegen, checkpoint, profiling, plotting, parallel,
+statespace, hybrid and the large-m tiers) are listed in ROADMAP.md.
+"""
+
+from .condense import (
+    get_affine_parameter_base_dim,
+    get_parameter_dims,
+    get_parameter_names,
+    mpc2mpqp,
+)
+from .models.model import (
+    Labels,
+    Model,
+    linearize,
+    make_model,
+    model_from_continuous,
+    model_from_nonlinear,
+)
+from .mpc import MPC, constraint_violation, format_move_block
+from .observer import KalmanFilter, OffsetFreeObserver
+from .robust import constraint_tightening
+from .rollout import RolloutResult, build_rollout
+from .simulation import Scenario, Simulation, get_preview, simulate, simulate_kw
+from .types import (
+    Constraint,
+    MPCSettings,
+    MPCWeights,
+    MPQP,
+    ParameterRange,
+)
+from .utils.formatting import label2id, make_subscript, prettify_parameter_label
+from .utils.linalg import dare, kalman_gain, matrixify, zoh
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "MPC", "Model", "Labels", "make_model", "model_from_continuous",
+    "model_from_nonlinear", "linearize", "mpc2mpqp", "get_parameter_dims",
+    "get_parameter_names", "get_affine_parameter_base_dim",
+    "label2id", "prettify_parameter_label", "make_subscript",
+    "KalmanFilter", "OffsetFreeObserver", "Scenario", "Simulation",
+    "simulate", "simulate_kw", "get_preview", "Constraint", "MPCWeights",
+    "MPCSettings", "MPQP", "ParameterRange", "constraint_tightening",
+    "constraint_violation", "format_move_block", "dare", "kalman_gain",
+    "matrixify", "zoh", "build_rollout", "RolloutResult",
+    "mpc_example", "mpc_examples", "mpc_example_names",
+]
+
+
+def mpc_example(name, Np=None, Nc=None, **kwargs):
+    """Build a canonical example controller (reference src/mpc_examples.jl)."""
+    from .models.examples import mpc_example as _ex
+
+    return _ex(name, Np, Nc, **kwargs)
+
+
+def mpc_examples(name, Np=None, Nc=None, **kwargs):
+    """Return (mpc, parameter_range) for an example, mirroring the reference."""
+    ex = mpc_example(name, Np, Nc, **kwargs)
+    return ex.mpc, ex.range
+
+
+def mpc_example_names():
+    from .models.examples import mpc_example_names as _names
+
+    return _names()

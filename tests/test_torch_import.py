@@ -1,0 +1,47 @@
+"""The port stands alone: it imports neither jax nor linearmpc_tpu, and its
+on-card smoke test refuses to run without a GPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def _run(code_or_args, cwd=ROOT):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import sys\n"
+        "import linearmpc_tpu_torch as L\n"
+        "import linearmpc_tpu_torch.ops.engine, linearmpc_tpu_torch.rollout\n"
+        "mpc, _ = L.mpc_examples('invpend')\n"
+        "print(mpc.compute_control([5.0, 5.0, 0.0, 0.0])[0])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'linearmpc_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert abs(float(out.stdout.split()[-1]) - 1.7612519326) < 1e-6
+
+
+def test_chip_smoke_fails_without_cuda():
+    """No GPU here: the smoke test exits non-zero and prints no verdict."""
+    out = _run(["chip_smoke.py"])
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+
+
+def test_chip_smoke_fails_alone(tmp_path):
+    """Copied into a directory without the rest of the repo, it fails."""
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    out = _run(["chip_smoke.py"], cwd=tmp_path)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
