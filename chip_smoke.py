@@ -5,15 +5,25 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the two hand-written kernels (K1 ``csrc/bulk.cu``, K2
-``csrc/polish.cu``) from the sources, holds each against its plain torch
-version on the card, then drives the port's main path through the entry
-points a user calls: the golden single solve, the cold B=32768 invpend
-batch of the small-m tier, and the warm-started 4096 x 500 closed-loop
-rollout. Every phase asserts; any failure exits non-zero. Without CUDA it
-exits 1 and prints no result. The second-to-last line is a JSON object
-with each kernel's launches in the main-path run, its error against the
-plain version and both times; the last line is the JSON verdict.
+It builds the four hand-written kernels (K1 ``csrc/bulk.cu``, K2
+``csrc/polish.cu``, K3 ``csrc/iu.cu``, K4 ``csrc/ciu.cu``) from the
+sources, one nvcc each in parallel, holds each against its plain torch
+version on the card, and drives the port's three solve paths through the
+entry points a user calls, with the launch counts set to 0 just before
+each path and read just after:
+
+* small m (invpend, m=5): the golden single solve, the cold B=32768 batch
+  of the small-m tier and the warm-started 4096 x 500 rollout [4]-[7];
+* the IU tier (invpend 50/8 with the +-18 state box on ks 2..11, m=48):
+  the cold B=8192 batch and the 4096 x 500 rollout [8]-[10];
+* the compact tier (the box on ks 2..31, m=128): the cold B=8192 batch and
+  the 2048 x 300 rollout [11]-[13];
+
+then times kernels, tiers and rollouts [14]. Every phase asserts; any
+failure exits non-zero. Without CUDA it exits 1 and prints no result. The
+second-to-last line is a JSON object with each kernel's launches in its
+path's run, its error against the plain version and both times; the last
+line is the JSON verdict.
 """
 
 from __future__ import annotations
@@ -27,7 +37,7 @@ import numpy as np
 import torch
 
 import linearmpc_tpu_torch as L
-from linearmpc_tpu_torch.ops import bulk, cuda_lib, polish
+from linearmpc_tpu_torch.ops import bulk, ciu, cuda_lib, iu, polish
 from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
 
 GOLDEN_U = 1.7612519326
@@ -35,6 +45,13 @@ B_COLD = 32768              # cold stream batch (bench.py:90)
 B_ROLL, N_ROLL = 4096, 500  # closed-loop rollout (bench.py:215)
 N_ORACLE = 256              # lanes held against the NumPy f64 oracle
 CASES = (("invpend", None, None), ("aircraft", None, None), ("invpend", 50, 10))
+B_LARGE = 8192              # cold large-m batches (bench.py:313, :485)
+B_ROLL_IU, N_ROLL_IU = 4096, 500   # IU rollout (bench.py:364)
+B_ROLL_C, N_ROLL_C = 2048, 300     # compact rollout (bench.py:495)
+KERNELS = ("bulk", "polish", "iu", "ciu")
+# the discrete outputs of K3 / K4 compared lane by lane (index in the returns)
+K3_FIELDS = dict(act=1, side=2, iters=3, done=4, infeas=5)
+K4_FIELDS = dict(K3_FIELDS, ovf=6, slots=7)
 
 
 def fail(msg: str):
@@ -109,13 +126,19 @@ def device_profile(label: str, fn, calls: int, unprofiled_ms: float, top: int = 
     return "\n".join(lines)
 
 
-def oracle_error(ldp, thetas, U):
-    err = 0.0
+def oracle_error(ldp, thetas, U, status=None):
+    """Max |U - U_oracle| over the oracle-feasible lanes; with ``status``
+    also the number of lanes whose verdict (1 or -3) the engine's status
+    contradicts and the number the oracle decided."""
+    err, wrong, decided = 0.0, 0, 0
     for i in range(len(thetas)):
-        U_ref, *_rest, status = solve_ldp_numpy(ldp, thetas[i])
-        if status == 1:
+        U_ref, *_rest, s_ref = solve_ldp_numpy(ldp, thetas[i])
+        if s_ref == 1:
             err = max(err, float(np.max(np.abs(U[i] - U_ref))))
-    return err
+        if status is not None and s_ref in (1, -3):
+            decided += 1
+            wrong += int(status[i] != s_ref)
+    return err if status is None else (err, wrong, decided)
 
 
 def phase1_inputs(eng, thetas, dtype):
@@ -183,6 +206,120 @@ def compare_k2(name, eng, thetas, act, side):
     return max((U_k - U_p).abs().max().item(), (lam_k - lam_p).abs().max().item())
 
 
+def largem_mpc(k_hi: int, device, dtype):
+    """invpend Np=50, Nc=8 with the +-18 state box on ks 2..k_hi-1
+    (bench.py:308-310, :398-400): m = 48 at k_hi=12, m = 128 at k_hi=32."""
+    mpc, _ = L.mpc_examples("invpend", 50, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
+                       ks=range(2, k_hi))
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def largem_thetas(rng, B, box):
+    """x, r in +-box and u_prev in +-2 (bench.py:314-317, :403-406)."""
+    return np.hstack([rng.uniform(-box, box, (B, 4)), rng.uniform(-box, box, (B, 2)),
+                      rng.uniform(-2, 2, (B, 1))])
+
+
+def gi_inputs(eng, thetas, dtype):
+    """Cold bulk-phase inputs of the large-m tiers on the card, in ``dtype``:
+    (G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0) and the kernel
+    keywords (the f32 bulk phase's, or the f64 re-solve's)."""
+    f32 = dtype == torch.float32
+    G, Gs = (eng._G32, eng._Gs32) if f32 else (eng._G64, eng._Gs64)
+    arr = eng.arrays if f32 else eng.arrays_hi
+    th = torch.as_tensor(thetas, device=eng.device).to(dtype)
+    B, m = th.shape[0], eng.ldp.m
+    args = (G, Gs, arr.du + th @ arr.Dth.T, arr.dl + th @ arr.Dth.T, eng._eq, eng._immut,
+            torch.zeros((B, m), dtype=dtype, device=eng.device), arr.is_eq.expand(B, m),
+            torch.ones((B, m), dtype=torch.bool, device=eng.device))
+    kw = (dict(max_iter=eng.bulk_cap, primal_tol=eng.primal_tol, sign_tol=eng.sign_tol)
+          if f32 else dict(max_iter=eng.bulk_cap + 24, primal_tol=1e-6, sign_tol=1e-11))
+    return args, kw
+
+
+def compare_gi(label, out_k, out_p, fields, lam_i, inv_i, dtype):
+    """A GI kernel's outputs against its plain version's: lanes whose
+    discrete state disagrees (per field and in all), and on the agreeing
+    lanes the max |dlam| and the number of lam and inverse entries that
+    differ at all. The bar on disagreeing lanes is the share PR 1 set for
+    K1: 0.1% in f32, 0.01% in f64. On the agreeing lanes lam and the
+    inverse must be equal bit for bit: both sum in the same order without
+    multiply-add contraction. Returns the max |dlam|."""
+    B = out_k[0].shape[0]
+    same = torch.ones(B, dtype=torch.bool, device=out_k[0].device)
+    parts = []
+    for name, i in fields.items():
+        a, b = out_k[i], out_p[i]
+        eq = (a == b) if a.dim() == 1 else (a == b).all(1)
+        parts.append(f"{name} {int((~eq).sum())}")
+        same &= eq
+
+    def n_diff(i):  # entries that differ on the agreeing lanes (NaN == NaN)
+        a, b = out_k[i].reshape(B, -1)[same], out_p[i].reshape(B, -1)[same]
+        return int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+
+    n_bad = int((~same).sum())
+    err = (out_k[lam_i] - out_p[lam_i]).abs()[same].max().item() if n_bad < B else float("inf")
+    d_lam, d_inv = n_diff(lam_i), n_diff(inv_i)
+    bar = 1e-3 if dtype == torch.float32 else 1e-4
+    log(f"  {label} {str(dtype)[6:]}: disagreeing lanes {n_bad}/{B} ({', '.join(parts)}; "
+        f"bar {bar}), max |dlam| {err:.3e}, unequal entries on agreeing lanes: lam "
+        f"{d_lam}, inverse {d_inv} (0 required), mean iters "
+        f"{out_k[3].double().mean().item():.2f}, done {out_k[4].double().mean().item():.4f}, "
+        f"infeas {out_k[5].double().mean().item():.4f}")
+    check(n_bad <= bar * B, f"{label} {dtype}: {n_bad} of {B} lanes disagree (bar {bar})")
+    check(d_lam == 0 and d_inv == 0,
+          f"{label} {dtype}: {d_lam} lam / {d_inv} inverse entries differ on agreeing lanes")
+    return err
+
+
+def warm_gi_inputs(eng, out, thetas, rng):
+    """Warm bulk-phase inputs as a rollout step enters the kernel: the f32
+    state ``out`` of a batch (lam, act, side) entering the next batch of
+    thetas (each lane moved by N(0, 0.5)); returns (args, kw) with
+    ``retry_infeas`` set."""
+    th = thetas + rng.normal(0.0, 0.5, thetas.shape)
+    args, kw = gi_inputs(eng, th, torch.float32)
+    return args[:6] + (out[0], out[1] | eng.arrays.is_eq, out[2]), dict(kw, retry_infeas=True)
+
+
+def status_line(sol) -> str:
+    st = sol.status
+    return (f"status 1 {(st == 1).double().mean().item():.6f}, -3 "
+            f"{(st == -3).double().mean().item():.6f}, -1 {int((st == -1).sum())} lanes")
+
+
+def rollout_check(label, mpc, k_hi, rng, B, N, ref_lanes):
+    """A warm-started large-m closed loop from x0 in +-0.25 (bench.py:368,
+    :496): every step converged, no infeasible step, finite values; with
+    ``ref_lanes`` the first lanes against the port's CPU f64 rollout.
+    Returns (rollout, x0s, rs, first-run seconds)."""
+    rollout = L.build_rollout(mpc)
+    x0s = rng.uniform(-0.25, 0.25, (B, 4))
+    rs = np.zeros((B, 2))
+    t0 = time.perf_counter()
+    res = rollout(x0s, rs, None, N=N)
+    torch.cuda.synchronize()
+    t_first = time.perf_counter() - t0
+    conv = (res.status == 1).double().mean().item()
+    infeas = (res.status == -3).double().mean().item()
+    finite = all(torch.isfinite(t).all().item() for t in (res.xs, res.us, res.ys))
+    msg = (f"{label} {B} x {N}: converged {conv:.6f}, infeasible {infeas:.6f}, finite "
+           f"{finite}, first run {t_first:.2f} s, mean iters {res.iters.double().mean().item():.3f}")
+    check(finite, f"{label}: non-finite values")
+    check(conv == 1.0 and infeas == 0.0, f"{label}: converged {conv}, infeasible {infeas}")
+    if ref_lanes:
+        ref = L.build_rollout(largem_mpc(k_hi, "cpu", torch.float64))(
+            x0s[:ref_lanes], rs[:ref_lanes], None, N=N)
+        us, us_ref = res.us[:ref_lanes].double().cpu(), ref.us
+        rel_u = ((us - us_ref).abs() / (1.0 + us_ref.abs())).max().item()
+        msg += f"; first {ref_lanes} lanes vs CPU f64 rollout: max rel |du| {rel_u:.3e}"
+        check(rel_u <= 1e-5, f"{label} vs CPU f64: {rel_u:.3e} > 1e-5")
+    log(msg)
+    return rollout, x0s, rs, t_first
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -196,10 +333,9 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
 
-    # [1] build
+    # [1] build, one nvcc per source in parallel
     t0 = time.perf_counter()
-    for name in ("bulk", "polish"):
-        cuda_lib.load(name)
+    cuda_lib.build_all(KERNELS)
     log(f"[1] built kernels in {time.perf_counter() - t0:.2f} s "
         f"({', '.join(f'{k} {v:.2f} s' for k, v in cuda_lib.BUILD_SECONDS.items())})")
     for name, text in cuda_lib.PTXAS_LOG.items():
@@ -321,6 +457,166 @@ def main() -> int:
     for text in (prof_k1, prof_k2, prof_tier, prof_roll):
         log(text)
 
+    # [8] K3 against its plain version at the IU tier's shape
+    log(f"[8] K3 (GI inverse update) vs phase1_iu_plain, cold, m=48, B={B_LARGE}")
+    mpc_iu = largem_mpc(12, dev, torch.float32)
+    eng_iu = mpc_iu.engine
+    m_iu = eng_iu.ldp.m
+    check(eng_iu.path == "iu" and m_iu == 48, f"IU case: path {eng_iu.path}, m={m_iu}")
+    th_iu = largem_thetas(rng, B_LARGE, 12.0)
+    k3_err = None
+    for dtype in (torch.float32, torch.float64):
+        args, kw = gi_inputs(eng_iu, th_iu, dtype)
+        hi = eng_iu.arrays if dtype == torch.float32 else eng_iu.arrays_hi
+        R0 = (eng_iu.iu_R0_init(B_LARGE) if dtype == torch.float32
+              else iu.init_R_batch(hi.G_solve, args[7]))
+        out_k = iu.phase1_iu(*args, R0, **kw)
+        out_p = iu.phase1_iu_plain(*args, R0, **kw)
+        torch.cuda.synchronize()
+        err = compare_gi("K3", out_k, out_p, K3_FIELDS, 0, 6, dtype)
+        k3_err = err if k3_err is None else max(k3_err, err)
+        if dtype == torch.float32:
+            out_cold = out_k
+    # warm entry with the carried R and the warm-ray retry, as the rollout
+    # step launches K3
+    wargs, wkw = warm_gi_inputs(eng_iu, out_cold, th_iu, np.random.default_rng(1))
+    R_w = out_cold[6]
+    n_reset = int(iu.phase1_iu(*wargs, R_w, **dict(wkw, retry_infeas=False))[5].sum())
+    out_k = iu.phase1_iu(*wargs, R_w, **wkw)
+    out_p = iu.phase1_iu_plain(*wargs, R_w, **wkw)
+    torch.cuda.synchronize()
+    log(f"  K3 warm entry, retry_infeas=True: {n_reset} lanes flagged from their warm "
+        f"start and restarted cold")
+    k3_err = max(k3_err, compare_gi("K3 warm+retry", out_k, out_p, K3_FIELDS, 0, 6,
+                                    torch.float32))
+
+    # the IU path: cold tier and warm rollout -- K3's launches counted here
+    iu.LAUNCHES = 0
+    th_iu_dev = torch.as_tensor(th_iu, device=dev)
+    sol = eng_iu.solve_batch(th_iu_dev)
+    check(torch.isfinite(sol.U).all().item(), "IU tier: non-finite controls")
+    e, wrong, decided = oracle_error(eng_iu.ldp, th_iu[:128], sol.U[:128].cpu().numpy(),
+                                     sol.status[:128].cpu().numpy())
+    log(f"[9] IU tier B={B_LARGE}: {status_line(sol)}, mean iters "
+        f"{sol.iters.double().mean().item():.2f}; over 128 lanes max |U - U_oracle| {e:.3e}, "
+        f"{wrong} of {decided} oracle verdicts contradicted; K3 launches +{iu.LAUNCHES}")
+    check(bool((sol.status != -1).all()), "IU tier: a lane with status -1")
+    check(e <= 1e-9, f"IU tier error {e:.3e} > 1e-9")
+    check(wrong == 0, f"IU tier: {wrong} statuses contradict the oracle")
+    roll_iu, x0_iu, rs_iu, _ = rollout_check("[10] IU rollout", mpc_iu, 12, rng,
+                                             B_ROLL_IU, N_ROLL_IU, 8)
+    launches["iu"] = iu.LAUNCHES
+    log(f"    IU path launches: K3 {launches['iu']}")
+    check(launches["iu"] > 0, "K3 was never launched on the IU path")
+
+    # [11] K4 against its plain version at the compact tier's shape
+    mpc_c = largem_mpc(32, dev, torch.float32)
+    eng_c = mpc_c.engine
+    m_c, s_c = eng_c.ldp.m, eng_c.ciu_s_max
+    s_g = ciu.up8(2 * s_c)
+    log(f"[11] K4 (compact GI) vs phase1_ciu_plain, cold, m={m_c}, B={B_LARGE}, "
+        f"s={s_c} (f32 bulk, cap {eng_c.bulk_cap_p}) and s={s_g} (f64 guard)")
+    check(eng_c.path == "compact" and m_c == 128, f"compact case: path {eng_c.path}, m={m_c}")
+    th_c = largem_thetas(rng, B_LARGE, 10.0)
+    k4_err = None
+    for dtype in (torch.float32, torch.float64):
+        args, kw = gi_inputs(eng_c, th_c, dtype)
+        if dtype == torch.float32:
+            sl0, Rw0 = eng_c._ciu_cold_carry(B_LARGE)
+            kw["max_iter"] = eng_c.bulk_cap_p
+        else:
+            Rw0, sl0, _ = ciu.init_compact_batch(eng_c.arrays_hi.G_solve, args[7], s_g)
+        out_k = ciu.phase1_ciu(*args, sl0, Rw0, **kw)
+        out_p = ciu.phase1_ciu_plain(*args, sl0, Rw0, **kw)
+        torch.cuda.synchronize()
+        err = compare_gi("K4", out_k, out_p, K4_FIELDS, 0, 8, dtype)
+        k4_err = err if k4_err is None else max(k4_err, err)
+        if dtype == torch.float32:
+            out_cold = out_k
+    # warm entry with the carried slots and Rw and the warm-ray retry, as
+    # the rollout step and the second chance launch K4
+    wargs, wkw = warm_gi_inputs(eng_c, out_cold, th_c, np.random.default_rng(2))
+    sl_w, Rw_w = out_cold[7], out_cold[8]
+    n_reset = int(ciu.phase1_ciu(*wargs, sl_w, Rw_w, **dict(wkw, retry_infeas=False))[5].sum())
+    out_k = ciu.phase1_ciu(*wargs, sl_w, Rw_w, **wkw)
+    out_p = ciu.phase1_ciu_plain(*wargs, sl_w, Rw_w, **wkw)
+    torch.cuda.synchronize()
+    log(f"  K4 warm entry, retry_infeas=True: {n_reset} lanes flagged from their warm "
+        f"start and restarted cold")
+    k4_err = max(k4_err, compare_gi("K4 warm+retry", out_k, out_p, K4_FIELDS, 0, 8,
+                                    torch.float32))
+
+    # the compact path: cold tier and warm rollout -- K4's launches counted here
+    ciu.LAUNCHES = 0
+    th_c_dev = torch.as_tensor(th_c, device=dev)
+    sol = eng_c.solve_batch(th_c_dev)
+    check(torch.isfinite(sol.U).all().item(), "compact tier: non-finite controls")
+    e, wrong, decided = oracle_error(eng_c.ldp, th_c[:96], sol.U[:96].cpu().numpy(),
+                                     sol.status[:96].cpu().numpy())
+    log(f"[12] compact tier B={B_LARGE}, s={s_c}/{eng_c._ciu_s2}: {status_line(sol)}, mean "
+        f"iters {sol.iters.double().mean().item():.2f}; over 96 lanes max |U - U_oracle| "
+        f"{e:.3e}, {wrong} of {decided} oracle verdicts contradicted; second chance "
+        f"{eng_c.stats['second_chance']} lanes ({eng_c.stats['second_taken']} taken), f64 "
+        f"guard {eng_c.stats['guard']} lanes, ladder {eng_c.stats['ladder']} lanes; K4 "
+        f"launches +{ciu.LAUNCHES}")
+    check(bool((sol.status != -1).all()), "compact tier: a lane with status -1")
+    check(e <= 1e-9, f"compact tier error {e:.3e} > 1e-9")
+    check(wrong == 0, f"compact tier: {wrong} statuses contradict the oracle")
+    roll_c, x0_c, rs_c, _ = rollout_check("[13] compact rollout", mpc_c, 32, rng,
+                                          B_ROLL_C, N_ROLL_C, 0)
+    launches["ciu"] = ciu.LAUNCHES
+    log(f"    compact path launches: K4 {launches['ciu']}")
+    check(launches["ciu"] > 0, "K4 was never launched on the compact path")
+
+    # [14] large-m timings (CUDA events after warm-up; rollouts on the host
+    # clock ending in a synchronize), at the paths' shapes
+    args3, kw3 = gi_inputs(eng_iu, th_iu, torch.float32)
+    R03 = eng_iu.iu_R0_init(B_LARGE)
+    ms_k3 = cuda_ms(lambda: iu.phase1_iu(*args3, R03, **kw3), 10)
+    ms_k3p = cuda_ms(lambda: iu.phase1_iu_plain(*args3, R03, **kw3), 1, warmup=1)
+    args4, kw4 = gi_inputs(eng_c, th_c, torch.float32)
+    kw4["max_iter"] = eng_c.bulk_cap_p
+    sl04, Rw04 = eng_c._ciu_cold_carry(B_LARGE)
+    ms_k4 = cuda_ms(lambda: ciu.phase1_ciu(*args4, sl04, Rw04, **kw4), 10)
+    ms_k4p = cuda_ms(lambda: ciu.phase1_ciu_plain(*args4, sl04, Rw04, **kw4), 1, warmup=1)
+    ms_iu = cuda_ms(lambda: eng_iu.solve_batch(th_iu_dev), 5)
+    ms_c = cuda_ms(lambda: eng_c.solve_batch(th_c_dev), 5)
+    t_rolls = {}
+    for name, (roll, x0, rs, N) in (("iu", (roll_iu, x0_iu, rs_iu, N_ROLL_IU)),
+                                    ("c", (roll_c, x0_c, rs_c, N_ROLL_C))):
+        t0 = time.perf_counter()
+        roll(x0, rs, None, N=N)
+        torch.cuda.synchronize()
+        t_rolls[name] = time.perf_counter() - t0
+    profs = [
+        device_profile("K3 per launch", lambda: [iu.phase1_iu(*args3, R03, **kw3)
+                                                 for _ in range(5)], 5, ms_k3),
+        device_profile(f"IU tier per batch of {B_LARGE}",
+                       lambda: [eng_iu.solve_batch(th_iu_dev) for _ in range(3)], 3, ms_iu),
+        device_profile(f"IU rollout per step of {B_ROLL_IU} lanes",
+                       lambda: roll_iu(x0_iu, rs_iu, None, N=20), 20,
+                       1e3 * t_rolls["iu"] / N_ROLL_IU),
+        device_profile("K4 per launch", lambda: [ciu.phase1_ciu(*args4, sl04, Rw04, **kw4)
+                                                 for _ in range(5)], 5, ms_k4),
+        device_profile(f"compact tier per batch of {B_LARGE}",
+                       lambda: [eng_c.solve_batch(th_c_dev) for _ in range(3)], 3, ms_c),
+        device_profile(f"compact rollout per step of {B_ROLL_C} lanes",
+                       lambda: roll_c(x0_c, rs_c, None, N=20), 20,
+                       1e3 * t_rolls["c"] / N_ROLL_C),
+    ]
+    card = card_line()
+    log(f"[14] timings on {card}, m=48 (IU) and m={m_c} (compact), B={B_LARGE}:")
+    log(f"    K3 {ms_k3:.4f} ms vs phase1_iu_plain {ms_k3p:.4f} ms")
+    log(f"    K4 {ms_k4:.4f} ms vs phase1_ciu_plain {ms_k4p:.4f} ms")
+    log(f"    IU tier {ms_iu:.4f} ms/batch = {B_LARGE / ms_iu * 1e3:,.0f} solves/s")
+    log(f"    compact tier {ms_c:.4f} ms/batch = {B_LARGE / ms_c * 1e3:,.0f} solves/s")
+    log(f"    IU rollout {B_ROLL_IU} x {N_ROLL_IU} in {t_rolls['iu']:.3f} s = "
+        f"{B_ROLL_IU * N_ROLL_IU / t_rolls['iu']:,.0f} control-steps/s")
+    log(f"    compact rollout {B_ROLL_C} x {N_ROLL_C} in {t_rolls['c']:.3f} s = "
+        f"{B_ROLL_C * N_ROLL_C / t_rolls['c']:,.0f} control-steps/s")
+    for text in profs:
+        log(text)
+
     kernels = [
         {"name": "K1 bulk phase", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/bulk.cu",
@@ -332,8 +628,18 @@ def main() -> int:
          "replaces": "linearmpc_tpu/ops/pallas_polish.py:144",
          "launches": launches["polish"], "max_abs_err": k2_err,
          "ms": ms_k2, "plain_ms": ms_k2p},
+        {"name": "K3 GI inverse update", "route": "cuda",
+         "source": "linearmpc_tpu_torch/csrc/iu.cu",
+         "replaces": "linearmpc_tpu/ops/pallas_iu.py:107",
+         "launches": launches["iu"], "max_abs_err": k3_err,
+         "ms": ms_k3, "plain_ms": ms_k3p},
+        {"name": "K4 compact GI", "route": "cuda",
+         "source": "linearmpc_tpu_torch/csrc/ciu.cu",
+         "replaces": "linearmpc_tpu/ops/pallas_ciu.py:113",
+         "launches": launches["ciu"], "max_abs_err": k4_err,
+         "ms": ms_k4, "plain_ms": ms_k4p},
     ]
-    log(card)
+    log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

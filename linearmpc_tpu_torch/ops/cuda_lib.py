@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 ``nvcc`` into a shared library, loaded with ``ctypes`` (no PyTorch headers,
 so a build takes seconds). The build happens on first use, keyed by a hash
-of the source and the flags, into ``linearmpc_tpu_torch/_build/``; a failed
-build raises. Nothing here runs at import time.
+of the source, the shared ``csrc/*.cuh`` headers and the flags, into
+``linearmpc_tpu_torch/_build/``; a failed build raises. ``build_all``
+compiles several sources at once, one ``nvcc`` each. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -49,7 +52,9 @@ def load(name: str) -> ctypes.CDLL:
     if name in _LIBS:
         return _LIBS[name]
     src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    # the shared headers are part of every source
+    text = b"".join(p.read_bytes() for p in [src, *sorted(SRC_DIR.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{digest}.so"
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -67,6 +72,14 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib
+
+
+def build_all(names) -> None:
+    """Build and load several kernels at once, one ``nvcc`` process each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as ex:
+        for fut in [ex.submit(load, n) for n in names]:
+            fut.result()
 
 
 def check(err: int, what: str) -> None:

@@ -97,6 +97,21 @@ def _masked_solve(G_solve, act, rhs, use_cholesky: bool):
     return torch.linalg.solve(Gmask, rhs)
 
 
+def _masked_inverse(Gmask):
+    """Explicit inverse of (a batch of) symmetric masked working-set systems
+    through Cholesky, with the dtype-scaled ridge of ``_masked_solve``
+    (``dual_active_set.py:223-242``). A system that is not positive definite
+    in its dtype gives an all-NaN inverse instead of raising, as
+    ``jnp.linalg.cholesky`` does: the lane's residual is then NaN, which
+    the tiers rank first for their float64 re-solves."""
+    m = Gmask.shape[-1]
+    eye = torch.eye(m, dtype=Gmask.dtype, device=Gmask.device)
+    Gm = Gmask + (100.0 * m * torch.finfo(Gmask.dtype).eps) * eye
+    L, info = torch.linalg.cholesky_ex(Gm)
+    inv = torch.cholesky_solve(eye.expand_as(Gm), L)
+    return torch.where((info != 0)[..., None, None], torch.nan, inv)
+
+
 def _active_set_loop(arr: LDPArrays, du_t, dl_t, lam, active, side, *,
                      max_iter, primal_tol: float, sign_tol: float,
                      use_cholesky: bool, iters0=None) -> DualState:

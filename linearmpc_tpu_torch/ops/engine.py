@@ -1,38 +1,55 @@
 """Solver engine: the device arrays and solve paths of one LDP.
 
-Port of ``linearmpc_tpu/ops/engine.py`` (``:22-110``, the small-m tier
-``:1061-1243`` and the entry points ``:1426-1501``). The engine picks its
-path by dtype:
+Port of ``linearmpc_tpu/ops/engine.py`` (``:22-110``, the large-m tiers
+``:112-1059``, the small-m tier ``:1061-1243`` and the entry points
+``:1426-1501``). The engine picks its path by dtype and m, as the JAX
+engine does on its accelerator:
 
 * **float64** is the exact path: ``dual_active_set.solve_batch`` with the
   subset-table gather (m <= 12) or a masked factorization, as the JAX
   engine runs on the CPU. It runs on the CPU only.
-* **float32** with m <= 10 is the small-m tier: K1 bulk phase
-  (``ops/bulk.py``) -> K2 polish (``ops/polish.py``) -> ``torch.topk`` of
-  the K=256 worst lanes by ``bad`` -> ``finish_from_state`` in float64 ->
-  merge and status (``engine.py:1136-1211``). ``fused_rollout_solve`` is
-  the warm-started K1 + K2 step of the closed loop (``:1218-1241``). The
-  tier is one piece of code: on CUDA tensors it launches the kernels, on
-  CPU tensors it runs their plain versions.
+* **float32, m <= 10**, the small-m tier: K1 bulk phase (``ops/bulk.py``)
+  -> K2 polish (``ops/polish.py``) -> ``torch.topk`` of the K=256 worst
+  lanes by ``bad`` -> ``finish_from_state`` in float64 -> merge and status
+  (``engine.py:1136-1211``); ``fused_rollout_solve`` is its warm step.
+* **float32, m > 12 where K3's routing rule admits m** (``iu_max_chunk_lanes
+  (m) >= 128``, m <= 52), the IU tier (``engine.py:227-348``): K3 bulk
+  phase (``ops/iu.py``) carrying the masked inverse R, float64 Richardson
+  through R, the KKT residual ``bad``, two top-k straggler pools and a
+  cold float64 re-solve of the stragglers on K3's float64 instantiation;
+  ``fused_rollout_solve_iu`` is its warm step with the carried R.
+* **float32, larger m**, the compact tier (``engine.py:553-939``): K4
+  bulk phase (``ops/ciu.py``) over ``ciu_s_max`` working-set slots,
+  Richardson through the slots, a second-chance K4 pass at ``s2`` slots
+  for the 128 worst lanes, the float64 guard at doubled capacity and an
+  escalating guard ladder, all on K4's float64 instantiation;
+  ``fused_rollout_solve_ciu`` is its warm step with the carried slots.
 
-On CUDA the default dtype is float32, and a configuration outside the tier
-(float64, m > 10, binaries, lexicographic hierarchy, non-symmetric H)
-raises ``NotImplementedError`` naming the ROADMAP item that ports it; it
-does not run on the CPU instead. The JAX package's environment switches
-(``LINEARMPC_TPU_PALLAS``, ``LINEARMPC_TPU_DS``, ...) are not ported. No
-lane chunking and no B % 128 rule: the kernels take any batch size.
+Each tier is one piece of code: on CUDA tensors it launches the kernels,
+on CPU tensors it runs their plain versions. The tiers' float32 matrix
+products run at full precision (``full_f32``), as the JAX package's
+``Precision.HIGHEST``. On CUDA the default dtype is float32, and a
+configuration outside the tiers (float64, float32 at m = 11-12, binaries,
+lexicographic hierarchy, non-symmetric H) raises ``NotImplementedError``
+naming the ROADMAP item that ports it; it does not run on the CPU
+instead. The JAX package's environment switches (``LINEARMPC_TPU_PALLAS``,
+``LINEARMPC_TPU_CIU_SMAX``, ...) are not ported. No lane chunking and no
+B % 128 rule: the kernels take any batch size.
 
-Deliberate difference from the JAX single solve: the tier reports status
-1 or -1 only (``engine.py:1209-1210``), while the exact path's single and
-batched solves also report -3 through ``_primal_feasible``.
+Deliberate differences from the JAX package: the small-m tier reports
+status 1 or -1 only (``engine.py:1209-1210``); K4 breaks ties between
+equal dual step lengths by row, as the Pallas kernel does, also where the
+JAX package runs its XLA compact loop (warm solves, the f64 guards).
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-from . import bulk, polish
+from . import bulk, ciu, iu, polish
 from .dual_active_set import (
     LDPArrays,
     Solution,
@@ -44,8 +61,13 @@ from .ldp import SUBSET_CACHE_MAX_M, LDPData, precompute_subset_inverses
 
 STRAGGLER_K = 256   # lanes routed through the float64 continuation
 STRAGGLER_ITERS = 24
-FIX_TOL = 1e-8      # polish residual above which a lane is re-solved
-ROLLOUT_TOL = 1e-5  # residual bound of a rollout step's status
+FIX_TOL = 1e-8      # residual above which a lane is re-solved in float64
+ROLLOUT_TOL = 1e-5  # residual bound of a small-m rollout step's status
+REFINE = 6          # Richardson steps of the IU tier (engine.py:129)
+REFINE_ROLL = 4     # ... of its rollout step (:353)
+REFINE_C = 4        # ... of the compact tier (:488)
+REFINE_CR = 5       # ... of its rollout step (:945)
+ROLL_RES = 1e-6     # relative system residual of a large-m rollout step
 
 
 def default_dtype(device) -> torch.dtype:
@@ -55,6 +77,40 @@ def default_dtype(device) -> torch.dtype:
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to CUDA yet (ROADMAP.md, modules to port, {item})")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 matrix products at full precision (no TF32) inside the
+    block, as the JAX package's ``Precision.HIGHEST``; restores the
+    process's settings after."""
+    prev = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+
+
+def top_k(x, k: int):
+    """(values, indices) of the k largest entries of a (B,) tensor, ties in
+    index order (the rule of ``jax.lax.top_k``)."""
+    vals, idx = torch.sort(x, descending=True, stable=True)
+    return vals[:k], idx[:k]
+
+
+def _mv(M, v):
+    """Batched (B, n, n) @ (B, n)."""
+    return torch.bmm(M, v[:, :, None])[:, :, 0]
+
+
+def _scatter_rows(y, slots, m):
+    """Slot-space (B, s) values to row space (B, m), zeros elsewhere."""
+    dump = torch.where(slots >= 0, slots, m)  # free slots land in a dropped column
+    out = torch.zeros((y.shape[0], m + 1), dtype=y.dtype, device=y.device)
+    return out.scatter(1, dump, y)[:, :m]
 
 
 class SolverEngine:
@@ -84,12 +140,19 @@ class SolverEngine:
         if lexicographic:
             _unsupported("the lexicographic hierarchy", "item 6")
         if on_cuda and not self.tier:
-            _unsupported("the float64 exact path on CUDA", "item 5")
-        if self.tier and not (0 < m <= bulk.MAX_M):
-            _unsupported(f"the float32 tier at m={m} (the small-m tier takes "
-                         f"1 <= m <= {bulk.MAX_M})", "item 5, large-m tiers")
+            _unsupported("the float64 exact path on CUDA", "item 10")
         if self.tier and not symmetric:
-            _unsupported("a non-symmetric H (AVI) in the float32 tier", "item 5")
+            _unsupported("a non-symmetric H (AVI) in the float32 tiers", "item 10")
+        if self.tier and m <= 0:
+            _unsupported("the float32 tiers at m=0", "item 10")
+        if self.tier and bulk.MAX_M < m <= SUBSET_CACHE_MAX_M:
+            _unsupported(f"the float32 tier at m={m} (the JAX package runs its XLA "
+                         f"solve_single there)", "item 10")
+        # the tier the JAX engine picks on its accelerator
+        self.path = "exact"
+        if self.tier:
+            self.path = ("small" if m <= bulk.MAX_M
+                         else "iu" if iu.iu_max_chunk_lanes(m) >= iu.LANES else "compact")
 
         subset_inv = None
         if 0 < m <= SUBSET_CACHE_MAX_M:
@@ -108,19 +171,106 @@ class SolverEngine:
         self.arrays: LDPArrays = to_device_arrays(ldp, self.dtype, self.device, subset_inv)
         self.arrays_hi = (to_device_arrays(ldp, torch.float64, self.device, subset_inv)
                           if self.tier else None)
-        if self.tier:
+        if not self.tier:
+            return
+        # kernel-side flags stay on the host: no device sync per launch
+        self._eq = torch.as_tensor(np.asarray(ldp.is_eq, bool))
+        self._immut = torch.as_tensor(np.asarray(ldp.is_immutable, bool))
+        self._has_eq = bool(self._eq.any())
+        if self.path == "small":
             self._pd = polish.make_polish_data(ldp, subset_inv, self.device)
-            # kernel-side flags stay on the host: no device sync per launch
-            self._eq = torch.as_tensor(np.asarray(ldp.is_eq, bool))
-            self._immut = torch.as_tensor(np.asarray(ldp.is_immutable, bool))
             self.bulk_cap = min(self.iter_limit, 2 * m + 20)
+            return
+        # the GI kernels' Gram matrices: f32 as the Pallas kernels build
+        # them, f64 as the XLA loops do (ops/iu.py::gram)
+        self._G32, self._Gs32 = iu.gram(ldp, torch.float32, self.device)
+        self._G64, self._Gs64 = iu.gram(ldp, torch.float64, self.device)
+        self.bulk_cap = min(self.iter_limit, 2 * m + 24)
+        self._fix_ptol = min(self.primal_tol, 1e-6)
+        if self.path == "compact":
+            s_max, s2 = ciu.slot_capacities(m, ldp.n, int(self._eq.sum()))
+            self.ciu_s_max, self._ciu_s2 = s_max, s2
+            # K4 capped just above the generic working-set depth; the
+            # second chance and the guards finish the rest (engine.py:549)
+            self.bulk_cap_p = min(self.bulk_cap, max(26, 2 * ldp.n + 10))
+            self.stats: dict[str, int] = {}
 
-    # -- the small-m tier -------------------------------------------------
+    # -- shared pieces ------------------------------------------------------
     def _bounds32(self, thetas):
         arr = self.arrays
         dt = thetas.to(torch.float32) @ arr.Dth.T
         return arr.du + dt, arr.dl + dt
 
+    def _bounds64(self, th64):
+        hi = self.arrays_hi
+        dt = th64 @ hi.Dth.T
+        return hi.du + dt, hi.dl + dt
+
+    def _mask_apply(self, v, actf):
+        """The masked working-set system applied to v, in float64."""
+        return actf * ((v * actf) @ self.arrays_hi.G_solve.T) + (1.0 - actf) * v
+
+    def _richardson(self, apply_R, act, side, du_h, dl_h, refine):
+        """Float64 Richardson refinement of the working-set multipliers with
+        a float32 preconditioner ``apply_R`` (engine.py:255-268); returns
+        (lam, rhs, actf)."""
+        actf = act.to(torch.float64)
+        rhs = -actf * torch.where(side, du_h, dl_h)
+        lam = apply_R(rhs)
+        for _ in range(refine):
+            lam = lam + apply_R(rhs - self._mask_apply(lam, actf))
+        return lam, rhs, actf
+
+    def _recover(self, th64, lam):
+        hi = self.arrays_hi
+        U = hi.u_off + th64 @ hi.Uth_off.T - lam @ hi.HinvET.T
+        f_t = hi.f + th64 @ hi.f_theta.T
+        fval = 0.5 * ((U @ hi.H.T) * U).sum(1) + (f_t * U).sum(1)
+        return U, fval
+
+    def _kkt_bad(self, lam, act, side, du_h, dl_h):
+        """Float64 KKT residual per lane (engine.py:668-688): inactive-row
+        primal violation, active-row sign violation and the working-set
+        system residual. A lane whose Richardson diverged (NaN) gets +inf:
+        it cannot be certified, and it must rank first for the f64 tiers
+        (a NaN ranks by its sign bit in a sort, and fails every test)."""
+        hi = self.arrays_hi
+        ninf = -torch.inf
+        c = lam @ hi.G.T
+        inact = ~act & ~hi.is_immutable
+        primal = torch.where(inact, torch.maximum(-(du_h + c), dl_h + c), ninf).amax(1)
+        sgn = torch.where(act & ~hi.is_eq, torch.where(side, -lam, lam), ninf).amax(1)
+        actf = act.to(torch.float64)
+        rhs = -actf * torch.where(side, du_h, dl_h)
+        sys_res = (self._mask_apply(lam, actf) - rhs).abs().amax(1)
+        bad = torch.maximum(torch.maximum(primal, sgn), sys_res)
+        return torch.where(torch.isnan(bad), torch.inf, bad)
+
+    def _fix_solution(self, th64, idx, lam, act, side, iters, status) -> Solution:
+        U, fval = self._recover(th64[idx], lam)
+        return Solution(U, lam, act, side, fval, iters, status)
+
+    @staticmethod
+    def _merge(out: Solution, idx, fix: Solution) -> Solution:
+        """``out`` with the lanes ``idx`` replaced by ``fix``."""
+        fields = []
+        for base, upd in zip(out, fix):
+            base = base.clone()
+            base[idx] = upd.to(base.dtype)
+            fields.append(base)
+        return Solution(*fields)
+
+    def _pools(self, bad, infeas32, k_a, k_b):
+        """Lanes the float64 tier re-solves (engine.py:292-300, :826-832):
+        pool A, the k_a worst by ``bad`` among lanes f32 did not flag
+        infeasible, where ``bad`` > FIX_TOL; pool B, k_b lanes led by the
+        f32-flagged ones, every one of which the JAX tier re-solves (its
+        bad_top is +inf for every pool-B entry)."""
+        top_a, idx_a = top_k(torch.where(infeas32, -torch.inf, bad), k_a)
+        _, idx_b = top_k(torch.where(infeas32, torch.inf, -torch.inf), k_b)
+        return torch.unique(torch.cat([idx_a[top_a > FIX_TOL], idx_b]))
+
+    # -- the small-m tier ---------------------------------------------------
     def _tier_batch(self, thetas, warm=None) -> Solution:
         arr, hi = self.arrays, self.arrays_hi
         B, m = thetas.shape[0], self.ldp.m
@@ -156,6 +306,7 @@ class SolverEngine:
                         merge(side, fix.side), merge(fval, fix.fval),
                         merge(iters, fix.iters), merge(status, fix.status))
 
+    @full_f32()
     def fused_rollout_solve(self, thetas, lam0, act0, side0):
         """Warm-started whole-batch step of the closed loop: K1 bulk phase
         from the previous step's state, then K2 polish, no straggler tier.
@@ -173,15 +324,322 @@ class SolverEngine:
         status = torch.where(done & (bad <= ROLLOUT_TOL), one, -one)
         return U, lam_p, act, side, iters, status
 
+    # -- the IU tier (m up to ~52) -------------------------------------------
+    def _status(self, infeas, ok):
+        one = torch.ones(infeas.shape[0], dtype=torch.int32, device=self.device)
+        return torch.where(infeas, -3 * one, torch.where(ok, one, -one))
+
+    def _iu_phase1(self, du_t, dl_t, lam0, act0, side0, R0, retry):
+        return iu.phase1_iu(self._G32, self._Gs32, du_t, dl_t, self._eq, self._immut,
+                            lam0, act0, side0, R0, max_iter=self.bulk_cap,
+                            primal_tol=self.primal_tol, sign_tol=self.sign_tol,
+                            retry_infeas=retry)
+
+    def iu_R0_init(self, B: int):
+        """The carried inverse of a cold rollout start (engine.py:413-418)."""
+        m = self.ldp.m
+        if not self._has_eq:
+            return torch.eye(m, dtype=torch.float32, device=self.device).expand(B, m, m)
+        return iu.init_R_batch(self.arrays.G_solve, self.arrays.is_eq.expand(B, m))
+
+    def _iu_batch(self, thetas, warm=None) -> Solution:
+        arr, hi = self.arrays, self.arrays_hi
+        B, m = thetas.shape[0], self.ldp.m
+        du_t, dl_t = self._bounds32(thetas)
+        if warm is None:
+            # cold entry states are exact: a ray found from them stands
+            lam0 = torch.zeros((B, m), dtype=torch.float32, device=self.device)
+            act0 = arr.is_eq.expand(B, m)
+            side0 = torch.ones((B, m), dtype=torch.bool, device=self.device)
+            R0 = self.iu_R0_init(B)
+        else:
+            lam0, act0, side0 = (torch.as_tensor(w, device=self.device) for w in warm)
+            act0 = act0.to(torch.bool) | arr.is_eq
+            R0 = iu.init_R_batch(arr.G_solve, act0)
+        lam32, act, side, iters, _done, infeas32, R = self._iu_phase1(
+            du_t, dl_t, lam0.to(torch.float32), act0, side0.to(torch.bool), R0,
+            retry=warm is not None)
+
+        th64 = thetas.to(torch.float64)
+        du_h, dl_h = self._bounds64(th64)
+        lam, _, _ = self._richardson(lambda v: _mv(R, v.to(torch.float32)).double(),
+                                     act, side, du_h, dl_h, REFINE)
+        bad = self._kkt_bad(lam, act, side, du_h, dl_h)
+        U, fval = self._recover(th64, lam)
+        out = Solution(U, lam, act, side, fval, iters,
+                       self._status(infeas32, bad <= FIX_TOL))
+
+        # stragglers: a cold float64 re-solve with the same GI iteration
+        # (cold on purpose, engine.py:301-309), on K3's float64 instantiation
+        k = min(max(128, B // 64), B)
+        idx = self._pools(bad, infeas32, k, k)
+        if idx.numel() == 0:
+            return out
+        n = idx.numel()
+        act_c = hi.is_eq.expand(n, m)
+        lam_f, act_f, side_f, it_f, done_f, inf_f, _R = iu.phase1_iu(
+            self._G64, self._Gs64, du_h[idx], dl_h[idx], self._eq, self._immut,
+            torch.zeros((n, m), dtype=torch.float64, device=self.device), act_c,
+            torch.ones((n, m), dtype=torch.bool, device=self.device),
+            iu.init_R_batch(hi.G_solve, act_c), max_iter=self.bulk_cap + 24,
+            primal_tol=self._fix_ptol, sign_tol=1e-11)
+        fix = self._fix_solution(th64, idx, lam_f, act_f, side_f, iters[idx] + it_f,
+                                 self._status(inf_f, done_f))
+        return self._merge(out, idx, fix)
+
+    @full_f32()
+    def fused_rollout_solve_iu(self, thetas, lam0, act0, side0, R0):
+        """Warm-started IU step of the closed loop (engine.py:355-410): K3
+        from the previous step's multipliers, working set and carried R,
+        with the warm-ray retry; one Newton-Schulz pass on R; a short f64
+        Richardson. Returns (U f32, lam f32, act, side, iters, status, R)."""
+        arr = self.arrays
+        m = self.ldp.m
+        du_t, dl_t = self._bounds32(thetas)
+        lam32, act, side, iters, done, infeas32, R = self._iu_phase1(
+            du_t, dl_t, lam0.to(torch.float32), act0 | arr.is_eq, side0, R0, retry=True)
+        # one Newton-Schulz pass keeps the carried inverse from drifting
+        actf = act.to(torch.float32)
+        eye = torch.eye(m, dtype=torch.float32, device=self.device)
+        Gs = arr.G_solve + 4.0 * float(np.finfo(np.float32).eps) * eye
+        M = Gs * actf[:, :, None] * actf[:, None, :] + torch.diag_embed(1.0 - actf)
+        R = torch.bmm(R, 2.0 * eye - torch.bmm(M, R))
+
+        th64 = thetas.to(torch.float64)
+        du_h, dl_h = self._bounds64(th64)
+        lam, rhs, actf64 = self._richardson(lambda v: _mv(R, v.to(torch.float32)).double(),
+                                            act, side, du_h, dl_h, REFINE_ROLL)
+        U, _ = self._recover(th64, lam)
+        status = self._status(infeas32, done & self._resolved(lam, rhs, actf64))
+        return U.float(), lam.float(), act, side, iters, status, R
+
+    def _resolved(self, lam, rhs, actf):
+        """Relative working-set residual within ROLL_RES (engine.py:400-408)."""
+        sys_res = (self._mask_apply(lam, actf) - rhs).abs().amax(1)
+        return sys_res <= ROLL_RES * (1.0 + rhs.abs().amax(1))
+
+    # -- the compact tier -------------------------------------------------------
+    def _apply_slots(self, slots, Rw, act):
+        """The compact preconditioner: Rw on the working-set slots, identity
+        on inactive rows, float32 in and float64 out (engine.py:648-653)."""
+        m = self.ldp.m
+        occ = slots >= 0
+        sl = slots.clamp_min(0)
+        inact = 1.0 - act.to(torch.float32)
+
+        def apply(v):
+            v32 = v.to(torch.float32)
+            y = _mv(Rw, torch.where(occ, v32.gather(1, sl), 0.0))
+            return (_scatter_rows(y, slots, m) + v32 * inact).double()
+
+        return apply
+
+    def _rich_sel(self, slots, Rw, act, side, du_h, dl_h, th64, refine=REFINE_C):
+        """Float64 Richardson through the slot preconditioner; returns (lam,
+        U, fval) (engine.py:641-666)."""
+        lam, _, _ = self._richardson(self._apply_slots(slots, Rw, act),
+                                     act, side, du_h, dl_h, refine)
+        U, fval = self._recover(th64, lam)
+        return lam, U, fval
+
+    def _ciu_f64(self, du_h, dl_h, s, cap):
+        """Cold float64 compact re-solve at ``s`` slots on K4's float64
+        instantiation (the XLA guard loops of engine.py:843-850, :899-908)."""
+        hi = self.arrays_hi
+        n, m = du_h.shape
+        act_c = hi.is_eq.expand(n, m)
+        Rw0, sl0, _ = ciu.init_compact_batch(hi.G_solve, act_c, s)
+        return ciu.phase1_ciu(
+            self._G64, self._Gs64, du_h, dl_h, self._eq, self._immut,
+            torch.zeros((n, m), dtype=torch.float64, device=self.device), act_c,
+            torch.ones((n, m), dtype=torch.bool, device=self.device), sl0, Rw0,
+            max_iter=cap, primal_tol=self._fix_ptol, sign_tol=1e-11)
+
+    def _ciu_cold_carry(self, B):
+        m, s = self.ldp.m, self.ciu_s_max
+        if self._has_eq:
+            Rw0, sl0, _ = ciu.init_compact_batch(self.arrays.G_solve,
+                                                 self.arrays.is_eq.expand(B, m), s)
+            return sl0, Rw0
+        return self.ciu_carry_init(B)
+
+    def ciu_carry_init(self, B: int):
+        """The slot carry of a cold rollout start: every slot free, Rw = I
+        (engine.py:1056-1059)."""
+        s = self.ciu_s_max
+        return (torch.full((B, s), -1, dtype=torch.int64, device=self.device),
+                torch.eye(s, dtype=torch.float32, device=self.device).expand(B, s, s))
+
+    def _ciu_phase1(self, du_t, dl_t, lam0, act0, side0, slots0, Rw0, cap, retry):
+        return ciu.phase1_ciu(self._G32, self._Gs32, du_t, dl_t, self._eq, self._immut,
+                              lam0.to(torch.float32), act0, side0, slots0, Rw0,
+                              max_iter=cap, primal_tol=self.primal_tol,
+                              sign_tol=self.sign_tol, retry_infeas=retry)
+
+    def _ciu_batch(self, thetas, warm=None) -> Solution:
+        arr = self.arrays
+        B, m = thetas.shape[0], self.ldp.m
+        du_t, dl_t = self._bounds32(thetas)
+        # the second chance runs behind a cold bulk phase where the JAX
+        # package's Pallas kernel is eligible; a warm start (its XLA loop
+        # there) runs the full cap and the wide guard pools
+        second = warm is None and self._ciu_s2 is not None
+        if warm is None:
+            lam0 = torch.zeros((B, m), dtype=torch.float32, device=self.device)
+            act0 = arr.is_eq.expand(B, m)
+            side0 = torch.ones((B, m), dtype=torch.bool, device=self.device)
+            slots0, Rw0 = self._ciu_cold_carry(B)
+        else:
+            lam0, act0, side0 = (torch.as_tensor(w, device=self.device) for w in warm)
+            act0 = act0.to(torch.bool) | arr.is_eq
+            Rw0, slots0, _ = ciu.init_compact_batch(arr.G_solve, act0, self.ciu_s_max)
+        cap = self.bulk_cap_p if second else self.bulk_cap
+        lam32, act, side, iters, _done, infeas32, ovf, slots, Rw = self._ciu_phase1(
+            du_t, dl_t, lam0, act0, side0.to(torch.bool), slots0, Rw0, cap, retry=False)
+
+        th64 = thetas.to(torch.float64)
+        du_h, dl_h = self._bounds64(th64)
+        lam, U, fval = self._rich_sel(slots, Rw, act, side, du_h, dl_h, th64)
+        # capacity-overflow lanes cannot be certified by their carry
+        bad = torch.where(ovf, torch.inf, self._kkt_bad(lam, act, side, du_h, dl_h))
+        stats = dict(second_chance=0, second_taken=0, guard=0, ladder=0)
+        if second:
+            lam, U, fval, act, side, iters, bad, taken = self._second_chance(
+                du_t, dl_t, du_h, dl_h, th64, lam32, lam, U, fval, act, side, iters,
+                bad, infeas32)
+            stats.update(second_chance=min(B, 128), second_taken=taken)
+        out = Solution(U, lam, act, side, fval, iters,
+                       self._status(infeas32, bad <= FIX_TOL))
+
+        # the f64 guard at doubled capacity, cold (engine.py:833-841)
+        k_a = min(64, B) if second else min(max(256, B // 32), B)
+        k_b = min(32, B) if second else min(max(128, B // 64), B)
+        idx = self._pools(bad, infeas32, k_a, k_b)
+        if idx.numel():
+            s2g = min(m, ciu.up8(2 * self.ciu_s_max))
+            lam_f, act_f, side_f, it_f, done_f, inf_f, ovf_f, _s, _R = self._ciu_f64(
+                du_h[idx], dl_h[idx], s2g, self.bulk_cap + 24)
+            out = self._merge(out, idx, self._fix_solution(
+                th64, idx, lam_f, act_f, side_f, iters[idx] + it_f,
+                self._status(inf_f, done_f & ~ovf_f)))
+            stats["guard"] = idx.numel()
+            # the escalating guard ladder for lanes still unresolved
+            # (engine.py:877-938); a host-side check in place of lax.cond
+            s3 = min(m, ciu.up8(3 * s2g))
+            s4 = min(m, max(ciu.up8(2 * s3), 128))
+            ladder = [(s3, 2 * self.bulk_cap + 48)] if s3 > s2g else []
+            if s4 > s3:
+                ladder.append((s4, 4 * self.bulk_cap + 96))
+            for s_g, cap_g in ladder:
+                unres = out.status == -1
+                n_unres = int(unres.sum())
+                if n_unres == 0:
+                    break
+                _, idx3 = top_k(torch.where(unres, bad, -torch.inf), min(16, n_unres))
+                lam_g, act_g, side_g, it_g, done_g, inf_g, ovf_g, _s, _R = self._ciu_f64(
+                    du_h[idx3], dl_h[idx3], s_g, cap_g)
+                stats["ladder"] += idx3.numel()
+                st3 = self._status(inf_g, done_g & ~ovf_g)
+                take = unres[idx3] & (st3 != -1)
+                if bool(take.any()):
+                    idx3 = idx3[take]
+                    out = self._merge(out, idx3, self._fix_solution(
+                        th64, idx3, lam_g[take], act_g[take], side_g[take],
+                        out.iters[idx3] + it_g[take], st3[take]))
+        self.stats = stats
+        return out
+
+    def _second_chance(self, du_t, dl_t, du_h, dl_h, th64, lam32, lam, U, fval, act,
+                       side, iters, bad, infeas32):
+        """Warm-resume the 128 worst lanes through K4 at ``s2`` slots with a
+        rebuilt carry; a lane takes the result only where its f64 KKT
+        residual improves (engine.py:724-818)."""
+        arr = self.arrays
+        B, m = lam.shape
+        s2 = self._ciu_s2
+        cap2 = min(self.bulk_cap, max(160, 4 * self.bulk_cap_p))
+        _, idx2 = top_k(torch.where(infeas32, -torch.inf, bad), min(B, 128))
+        # rebuild the slot carry from each lane's working set; lanes whose
+        # set exceeds s2 restart cold
+        act_g = act[idx2]
+        fits = (act_g.sum(1) <= s2)[:, None]
+        act_g = torch.where(fits, act_g, arr.is_eq)
+        lam_g = torch.where(fits, lam32[idx2], 0.0)
+        side_g = torch.where(fits, side[idx2], True)
+        Rw2, sl2, _ = ciu.init_compact_batch(arr.G_solve, act_g, s2)
+        lam2_32, act2, side2, it2, _d, inf2, ovf2, sl2o, Rw2o = self._ciu_phase1(
+            du_t[idx2], dl_t[idx2], lam_g, act_g, side_g, sl2, Rw2, cap2, retry=True)
+        lam2, U2, fval2 = self._rich_sel(sl2o, Rw2o, act2, side2, du_h[idx2], dl_h[idx2],
+                                         th64[idx2])
+        # overflow at s2 and warm-derived ray flags are not certifiable
+        bad2 = torch.where(ovf2 | inf2, torch.inf,
+                           self._kkt_bad(lam2, act2, side2, du_h[idx2], dl_h[idx2]))
+        take = bad2 < bad[idx2]
+
+        def scat(base, upd):
+            out = base.clone()
+            sel = take.reshape((-1,) + (1,) * (upd.dim() - 1))
+            out[idx2] = torch.where(sel, upd, base[idx2])
+            return out
+
+        iters = iters.clone()
+        iters[idx2] += it2
+        return (scat(lam, lam2), scat(U, U2), scat(fval, fval2), scat(act, act2),
+                scat(side, side2), iters, scat(bad, bad2), int(take.sum()))
+
+    @full_f32()
+    def fused_rollout_solve_ciu(self, thetas, lam0, act0, side0, carry):
+        """Warm-started compact step of the closed loop (engine.py:947-1053):
+        K4 from the previous step's state and slot carry with the warm-ray
+        retry; one Newton-Schulz pass on Rw; a short f64 Richardson; a lane
+        that overflowed its slots restarts cold next step. Returns (U f32,
+        lam, act, side, iters, status, (slots, Rw))."""
+        arr = self.arrays
+        m, s = self.ldp.m, self.ciu_s_max
+        slots0, Rw0 = carry
+        du_t, dl_t = self._bounds32(thetas)
+        lam32, act, side, iters, done, infeas32, ovf, slots, Rw = self._ciu_phase1(
+            du_t, dl_t, lam0, act0, side0, slots0, Rw0, self.bulk_cap, retry=True)
+        # one Newton-Schulz pass on the slot inverse: Rw <- Rw (2I - Mw Rw)
+        occ = slots >= 0
+        sl = slots.clamp_min(0)
+        eye_m = torch.eye(m, dtype=torch.float32, device=self.device)
+        Gs = arr.G_solve + 4.0 * float(np.finfo(np.float32).eps) * eye_m
+        occf = occ.to(torch.float32)
+        Mw = (Gs[sl[:, :, None], sl[:, None, :]] * occf[:, :, None] * occf[:, None, :]
+              + torch.diag_embed(1.0 - occf))
+        eye_s = torch.eye(s, dtype=torch.float32, device=self.device)
+        Rw = torch.bmm(Rw, 2.0 * eye_s - torch.bmm(Mw, Rw))
+
+        th64 = thetas.to(torch.float64)
+        du_h, dl_h = self._bounds64(th64)
+        lam, rhs, actf = self._richardson(self._apply_slots(slots, Rw, act), act, side,
+                                          du_h, dl_h, REFINE_CR)
+        U, _ = self._recover(th64, lam)
+        status = self._status(infeas32, done & ~ovf & self._resolved(lam, rhs, actf))
+        # an overflowed lane's slot carry is unusable: reset it cold
+        o = ovf[:, None]
+        lam32 = torch.where(o, 0.0, lam32)
+        act = act & ~o
+        side = side | o
+        slots = torch.where(o, -1, slots)
+        Rw = torch.where(ovf[:, None, None], eye_s, Rw)
+        return U.float(), lam32, act, side, iters, status, (slots, Rw)
+
     # -- entry points -------------------------------------------------------
+    @full_f32()
     def solve_batch(self, thetas, warm=None) -> Solution:
         """Batched solve of (B, n_theta) parameters; ``warm`` is an optional
-        (lam0, act0, side0) warm start. The tier keeps theta in float64
-        (only its bulk phase rounds it to float32)."""
+        (lam0, act0, side0) warm start. The float32 tiers keep theta in
+        float64 (only their bulk phase rounds it to float32)."""
         in_dtype = torch.float64 if self.tier else self.dtype
         thetas = torch.as_tensor(thetas, device=self.device).to(in_dtype)
-        if self.tier:
+        if self.path == "small":
             return self._tier_batch(thetas, warm)
+        if self.path == "iu":
+            return self._iu_batch(thetas, warm)
+        if self.path == "compact":
+            return self._ciu_batch(thetas, warm)
         w = (None,) * 3 if warm is None else tuple(warm)
         return solve_batch(self.arrays, thetas, *w, max_iter=self.iter_limit,
                            primal_tol=self.primal_tol, sign_tol=self.sign_tol,

@@ -9,11 +9,14 @@ and offset-free observers), a warm-started solve, Kalman predict, plant
 step. Warm starts carry the working set between steps, as DAQP's warm
 start does (reference codegen DAQP_WARMSTART, src/codegen.jl:167-169).
 
-A float32 engine steps through ``SolverEngine.fused_rollout_solve`` (the
-K1 and K2 kernels on CUDA, their plain versions on the CPU); its state is
-carried in float32 as in the JAX package (``rollout.py:92,211``), and the
-float64 controls of the polish are cast to float32. A float64 engine steps
-through the exact path of ``SolverEngine.solve_batch``.
+A float32 engine steps through the warm step of its tier, the kernels on
+CUDA and their plain versions on the CPU: ``fused_rollout_solve`` (K1 and
+K2) at small m, ``fused_rollout_solve_iu`` (K3) with the carried masked
+inverse R, or ``fused_rollout_solve_ciu`` (K4) with the carried slot
+assignment and slot inverse, as ``linearmpc_tpu/rollout.py:207-246``
+does. Its state is carried in float32 as in the JAX package
+(``rollout.py:92,211``), and the float64 controls are cast to float32. A
+float64 engine steps through the exact path of ``SolverEngine.solve_batch``.
 """
 
 from __future__ import annotations
@@ -105,12 +108,17 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
 
     m = engine.ldp.m
 
-    def solve_step(theta, lam, act, side):
-        """(U, lam, act, side, iters, status) of one warm-started step."""
-        if engine.tier:
-            return engine.fused_rollout_solve(theta, lam, act, side)
+    def solve_step(theta, lam, act, side, carry):
+        """(U, lam, act, side, iters, status, carry) of one warm-started
+        step; ``carry`` is the large-m tiers' carried inverse."""
+        if engine.path == "small":
+            return (*engine.fused_rollout_solve(theta, lam, act, side), carry)
+        if engine.path == "iu":
+            return engine.fused_rollout_solve_iu(theta, lam, act, side, carry)
+        if engine.path == "compact":
+            return engine.fused_rollout_solve_ciu(theta, lam, act, side, carry)
         sol = engine.solve_batch(theta, warm=(lam, act, side))
-        return sol.U, sol.lam, sol.active, sol.side, sol.iters, sol.status
+        return sol.U, sol.lam, sol.active, sol.side, sol.iters, sol.status, carry
 
     def traj(a, B, T_need, width):
         if a is None or not width:
@@ -142,6 +150,8 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
         lam = torch.zeros((B, m), dtype=dtype, device=dev)
         act = torch.zeros((B, m), dtype=torch.bool, device=dev)
         side = torch.ones((B, m), dtype=torch.bool, device=dev)
+        carry = (engine.iu_R0_init(B) if engine.path == "iu"
+                 else engine.ciu_carry_init(B) if engine.path == "compact" else None)
         out = {k: [] for k in ("xs", "us", "ys", "iters", "status")}
         for kk in range(N):
             d_k = ds[:, kk, :]
@@ -180,7 +190,8 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
                     parts.append(ps[:, kk, :])
             theta = torch.cat(parts, dim=1)
 
-            U, lam_n, act, side, iters_n, status_n = solve_step(theta, lam, act, side)
+            U, lam_n, act, side, iters_n, status_n, carry = solve_step(
+                theta, lam, act, side, carry)
             lam = lam_n.to(dtype)
             u = U[:, :nu].to(dtype) - xhat @ K.T
 

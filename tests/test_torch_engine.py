@@ -134,13 +134,13 @@ def test_tier_routes_stragglers_to_f64():
 
 @pytest.mark.parametrize("case", [
     dict(dtype=torch.float64, name="invpend"),      # exact path: CPU only
-    dict(dtype=torch.float32, name="chained"),      # m > 10: large-m tier
+    dict(dtype=torch.float32, name="invpend", Np=50, Nc=11),  # m = 11: XLA solve_single
     dict(dtype=torch.float32, name="satellite"),    # binaries: B&B
 ])
 def test_cuda_engine_outside_tier_raises(case):
-    """A CUDA engine outside the small-m tier names its ROADMAP item instead
-    of falling back to the CPU (checked before any device work)."""
-    mpc, _ = tmpc.mpc_examples(case["name"])
+    """A CUDA engine outside the float32 tiers names its ROADMAP item
+    instead of falling back to the CPU (checked before any device work)."""
+    mpc, _ = tmpc.mpc_examples(case["name"], case.get("Np"), case.get("Nc"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         mpc.setup(device="cuda", dtype=case["dtype"])
 

@@ -5,9 +5,12 @@ no JAX, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-(``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.) Both
-kernels are built without FMA contraction and sum in the plain versions'
-order, so kernel and plain version agree bit for bit.
+(``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.) Every
+kernel is built without FMA contraction and sums in its plain version's
+order, so kernel and plain version agree bit for bit: K1/K2 at invpend
+m = 5, K3 (``ops/iu.py``) at m = 48 and K4 (``ops/ciu.py``) at m = 64, cold
+in float32 and float64 and warm with the warm-ray retry in float32, then
+the two large-m tiers against the oracle.
 """
 
 import numpy as np
@@ -15,7 +18,7 @@ import pytest
 import torch
 
 import linearmpc_tpu_torch as tmpc
-from linearmpc_tpu_torch.ops import bulk, polish
+from linearmpc_tpu_torch.ops import bulk, ciu, iu, polish
 
 pytestmark = pytest.mark.gpu
 
@@ -75,3 +78,124 @@ def test_cuda_tier_golden_and_oracle():
     for i in range(64):
         U_ref, *_rest = solve_ldp_numpy(mpc.engine.ldp, thn[i])
         assert np.max(np.abs(U[i] - U_ref)) <= 1e-9
+
+
+def _largem(k_hi, B=256, seed=3):
+    """invpend 30/8 with the +-18 state box on ks 2..k_hi-1 on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend", 30, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
+                       ks=range(2, k_hi))
+    mpc.setup(device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    th = np.hstack([rng.uniform(-12, 12, (B, 6)), rng.uniform(-2, 2, (B, 1))])
+    return mpc, torch.as_tensor(th, device="cuda")
+
+
+def _gi_inputs(eng, th, dtype):
+    G, Gs = (eng._G32, eng._Gs32) if dtype == torch.float32 else (eng._G64, eng._Gs64)
+    arr = eng.arrays if dtype == torch.float32 else eng.arrays_hi
+    th = th.to(dtype)
+    B, m = th.shape[0], eng.ldp.m
+    return (G, Gs, arr.du + th @ arr.Dth.T, arr.dl + th @ arr.Dth.T, eng._eq, eng._immut,
+            torch.zeros((B, m), dtype=dtype, device="cuda"), arr.is_eq.expand(B, m),
+            torch.ones((B, m), dtype=torch.bool, device="cuda"))
+
+
+def _gi_kw(eng, dtype):
+    if dtype == torch.float32:
+        return dict(max_iter=eng.bulk_cap, primal_tol=eng.primal_tol, sign_tol=eng.sign_tol)
+    return dict(max_iter=eng.bulk_cap + 24, primal_tol=1e-6, sign_tol=1e-11)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_iu_kernel_matches_plain(dtype):
+    mpc, th = _largem(12)
+    eng = mpc.engine
+    args = _gi_inputs(eng, th, dtype)
+    m = eng.ldp.m
+    R0 = torch.eye(m, dtype=dtype, device="cuda").expand(th.shape[0], m, m)
+    before = iu.LAUNCHES
+    out_k = iu.phase1_iu(*args, R0, **_gi_kw(eng, dtype))
+    out_p = iu.phase1_iu_plain(*args, R0, **_gi_kw(eng, dtype))
+    assert iu.LAUNCHES == before + 1
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_ciu_kernel_matches_plain(dtype):
+    mpc, th = _largem(16)
+    eng = mpc.engine
+    args = _gi_inputs(eng, th, dtype)
+    s = eng.ciu_s_max if dtype == torch.float32 else 2 * eng.ciu_s_max
+    hi = eng.arrays if dtype == torch.float32 else eng.arrays_hi
+    Rw0, sl0, _ = ciu.init_compact_batch(hi.G_solve, args[7], s)
+    before = ciu.LAUNCHES
+    out_k = ciu.phase1_ciu(*args, sl0, Rw0, **_gi_kw(eng, dtype))
+    out_p = ciu.phase1_ciu_plain(*args, sl0, Rw0, **_gi_kw(eng, dtype))
+    assert ciu.LAUNCHES == before + 1
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+
+
+def _warm(eng, out, th, seed):
+    """The f32 state ``out`` (lam, act, side) of a batch entering nearby
+    thetas, as a rollout step enters K3/K4."""
+    rng = np.random.default_rng(seed)
+    th_next = th + torch.as_tensor(rng.normal(0.0, 0.5, tuple(th.shape)), device="cuda")
+    args = _gi_inputs(eng, th_next, torch.float32)
+    return args[:6] + (out[0], out[1] | eng.arrays.is_eq, out[2])
+
+
+def test_iu_kernel_warm_retry_matches_plain():
+    """K3 from a warm state with a carried (non-identity) R and the warm-ray
+    retry, against its plain version."""
+    mpc, th = _largem(12, seed=5)
+    eng = mpc.engine
+    kw = _gi_kw(eng, torch.float32)
+    m = eng.ldp.m
+    R0 = torch.eye(m, device="cuda").expand(th.shape[0], m, m)
+    cold = iu.phase1_iu(*_gi_inputs(eng, th, torch.float32), R0, **kw)
+    args = _warm(eng, cold, th, 6)
+    assert bool(iu.phase1_iu(*args, cold[6], **kw)[5].any())  # the retry has lanes to reset
+    out_k = iu.phase1_iu(*args, cold[6], **kw, retry_infeas=True)
+    out_p = iu.phase1_iu_plain(*args, cold[6], **kw, retry_infeas=True)
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+
+
+def test_ciu_kernel_warm_retry_matches_plain():
+    """K4 from a warm state with a carried slot map and Rw and the warm-ray
+    retry, against its plain version."""
+    mpc, th = _largem(16, seed=7)
+    eng = mpc.engine
+    kw = _gi_kw(eng, torch.float32)
+    Rw0, sl0, _ = ciu.init_compact_batch(eng.arrays.G_solve,
+                                         eng.arrays.is_eq.expand(th.shape[0], eng.ldp.m),
+                                         eng.ciu_s_max)
+    cold = ciu.phase1_ciu(*_gi_inputs(eng, th, torch.float32), sl0, Rw0, **kw)
+    args = _warm(eng, cold, th, 8)
+    assert bool(ciu.phase1_ciu(*args, cold[7], cold[8], **kw)[5].any())
+    out_k = ciu.phase1_ciu(*args, cold[7], cold[8], **kw, retry_infeas=True)
+    out_p = ciu.phase1_ciu_plain(*args, cold[7], cold[8], **kw, retry_infeas=True)
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k_hi", [12, 16])
+def test_largem_tier_on_card_matches_oracle(k_hi):
+    """The IU (m = 48) and compact (m = 64) tiers through setup(device=
+    "cuda"): every oracle-feasible lane optimal within 1e-9."""
+    from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
+
+    mpc, th = _largem(k_hi, B=512, seed=4)
+    launches = (iu.LAUNCHES, ciu.LAUNCHES)
+    sol = mpc.engine.solve_batch(th)
+    assert (iu.LAUNCHES, ciu.LAUNCHES) != launches
+    U, st, thn = sol.U.cpu().numpy(), sol.status.cpu().numpy(), th.cpu().numpy()
+    for i in range(64):
+        U_ref, *_rest, s_ref = solve_ldp_numpy(mpc.engine.ldp, thn[i])
+        if s_ref == 1:
+            assert st[i] == 1 and np.max(np.abs(U[i] - U_ref)) <= 1e-9

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor linearmpc_tpu, and its
 on-card smoke test refuses to run without a GPU."""
 
+import math
 import os
 import subprocess
 import sys
@@ -45,3 +46,26 @@ def test_chip_smoke_fails_alone(tmp_path):
     out = _run(["chip_smoke.py"], cwd=tmp_path)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_largem_modules_leave_jax_out():
+    """Every module of the large-m tiers imported and the IU tier run (its
+    plain versions) without pulling in JAX."""
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "import linearmpc_tpu_torch as L\n"
+        "from linearmpc_tpu_torch.ops import ciu, compact_iu, cuda_lib, iu\n"
+        "mpc, _ = L.mpc_examples('invpend', 30, 8)\n"
+        "mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),\n"
+        "                   ks=range(2, 12))\n"
+        "mpc.setup(dtype=torch.float32)\n"
+        "assert mpc.engine.path == 'iu'\n"
+        "print(mpc.compute_control([5.0, 5.0, 0.0, 0.0])[0])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'linearmpc_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert math.isfinite(float(out.stdout.split()[-1]))
