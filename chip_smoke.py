@@ -12,23 +12,32 @@ version on the card, and drives the port's three solve paths through the
 entry points a user calls, with the launch counts set to 0 just before
 each path and read just after:
 
-* small m (invpend, m=5): the golden single solve, the cold B=32768 batch
-  of the small-m tier and the warm-started 4096 x 500 rollout [4]-[7];
+* small m (invpend, m=5): the golden single solve (also through setup()
+  with no device, which must land on the card), the cold B=32768 batch of
+  the small-m tier and the warm-started 4096 x 500 rollout [4]-[7];
 * the IU tier (invpend 50/8 with the +-18 state box on ks 2..11, m=48):
   the cold B=8192 batch and the 4096 x 500 rollout [8]-[10];
 * the compact tier (the box on ks 2..31, m=128): the cold B=8192 batch and
   the 2048 x 300 rollout [11]-[13];
 
-then times kernels, tiers and rollouts [14]. Every phase asserts; any
-failure exits non-zero. Without CUDA it exits 1 and prints no result. The
-second-to-last line is a JSON object with each kernel's launches in its
-path's run, its error against the plain version and both times; the last
-line is the JSON verdict.
+then times kernels, tiers and rollouts [14]; holds K3 and K4 against
+their plain versions at ragged batch sizes, with a per-lane eq and on their
+wide-team paths (K3 f64 at m=160 with R in global memory, K4 f64 at s=96)
+[15]; and replays, compares and times the K3/K4 launches the paths make
+(cold, the second chance, one warm rollout step of each tier) [16]. Every
+K3/K4 comparison requires every lane to agree and lam and the inverse to
+be equal bit for bit. Every phase asserts; any failure exits non-zero.
+Without CUDA it exits 1 and prints no result. The second-to-last line is
+a JSON object with, per kernel, its launches on its path's run (and on
+each path), its error against the plain version, its call and device
+times, the plain version's time and the bound; the last line is the JSON
+verdict.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -49,6 +58,13 @@ B_LARGE = 8192              # cold large-m batches (bench.py:313, :485)
 B_ROLL_IU, N_ROLL_IU = 4096, 500   # IU rollout (bench.py:364)
 B_ROLL_C, N_ROLL_C = 2048, 300     # compact rollout (bench.py:495)
 KERNELS = ("bulk", "polish", "iu", "ciu")
+COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu)  # each module's LAUNCHES
+PATHS = ("small", "iu", "compact")
+# the bound of a kernel: its bytes at HBM3's rate and its operations at the
+# card's highest rate for their type (H100 SXM, NVIDIA's data sheet: float32
+# outside the tensor cores, float64 on them)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 # the discrete outputs of K3 / K4 compared lane by lane (index in the returns)
 K3_FIELDS = dict(act=1, side=2, iters=3, done=4, infeas=5)
 K4_FIELDS = dict(K3_FIELDS, ovf=6, slots=7)
@@ -139,6 +155,61 @@ def oracle_error(ldp, thetas, U, status=None):
             decided += 1
             wrong += int(status[i] != s_ref)
     return err if status is None else (err, wrong, decided)
+
+
+def reset_counts():
+    for mod in COUNTED.values():
+        mod.LAUNCHES = 0
+
+
+def read_counts() -> dict:
+    return {k: mod.LAUNCHES for k, mod in COUNTED.items()}
+
+
+def nbytes(*tensors) -> int:
+    """Bytes the tensors hold, each read or written once (a broadcast view
+    counts the one matrix it views)."""
+    return sum(min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
+               for t in tensors if isinstance(t, torch.Tensor))
+
+
+def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
+    """(least ms, what sets it) for moving n_bytes and doing flops."""
+    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
+    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def gi_bound(args, out) -> tuple[float, str]:
+    """K3/K4's bound on this run's data: inputs and outputs once, and per
+    lane-iteration the products over its working set W (|W| at exit): the
+    jump, the GI direction and the Woodbury product on the inverse (s x |W|
+    each), the slack G @ lam_base (m x |W|) and the rank-2 update (|W|^2).
+    The slot maps, int64 at the wrapper, move as int32 in the kernel."""
+    m, s = args[2].shape[1], args[-1].shape[-1]
+    w = out[1].sum(1).double()
+    flops = float((out[3].double() * (2 * (3 * s * w + m * w) + 4 * w * w)).sum())
+    moved = sum(nbytes(t) // (2 if t.dtype == torch.int64 else 1)
+                for t in (*args, *out) if isinstance(t, torch.Tensor))
+    return bound(moved, flops, args[2].dtype)
+
+
+def kernel_device_ms(fn, name: str):
+    """Mean device time of one launch of the kernels whose name holds
+    ``name`` after no letter (iu_kernel is not ciu_kernel), from
+    torch.profiler over what ``fn`` launches; None where it saw none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA
+            and re.search(rf"(?<![A-Za-z_]){name}", e.key)]
+    us, n = sum(getattr(e, "self_device_time_total", 0.0) for e in hits), sum(e.count for e in hits)
+    return us / n / 1e3 if us and n else None
 
 
 def phase1_inputs(eng, thetas, dtype):
@@ -242,10 +313,10 @@ def compare_gi(label, out_k, out_p, fields, lam_i, inv_i, dtype):
     """A GI kernel's outputs against its plain version's: lanes whose
     discrete state disagrees (per field and in all), and on the agreeing
     lanes the max |dlam| and the number of lam and inverse entries that
-    differ at all. The bar on disagreeing lanes is the share PR 1 set for
-    K1: 0.1% in f32, 0.01% in f64. On the agreeing lanes lam and the
-    inverse must be equal bit for bit: both sum in the same order without
-    multiply-add contraction. Returns the max |dlam|."""
+    differ at all. No lane may disagree, and lam and the inverse must be
+    equal bit for bit (NaN where both are): both sum in the same order
+    without multiply-add contraction and pass NaN on alike. Returns the
+    max |dlam|."""
     B = out_k[0].shape[0]
     same = torch.ones(B, dtype=torch.bool, device=out_k[0].device)
     parts = []
@@ -260,15 +331,15 @@ def compare_gi(label, out_k, out_p, fields, lam_i, inv_i, dtype):
         return int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
 
     n_bad = int((~same).sum())
-    err = (out_k[lam_i] - out_p[lam_i]).abs()[same].max().item() if n_bad < B else float("inf")
+    dlam = (out_k[lam_i] - out_p[lam_i]).abs()[same]
+    err = float(torch.nan_to_num(dlam, nan=0.0).max()) if n_bad < B else float("inf")
     d_lam, d_inv = n_diff(lam_i), n_diff(inv_i)
-    bar = 1e-3 if dtype == torch.float32 else 1e-4
-    log(f"  {label} {str(dtype)[6:]}: disagreeing lanes {n_bad}/{B} ({', '.join(parts)}; "
-        f"bar {bar}), max |dlam| {err:.3e}, unequal entries on agreeing lanes: lam "
+    log(f"  {label} {str(dtype)[6:]}: disagreeing lanes {n_bad}/{B} ({', '.join(parts)}), "
+        f"max |dlam| {err:.3e}, unequal entries on agreeing lanes: lam "
         f"{d_lam}, inverse {d_inv} (0 required), mean iters "
         f"{out_k[3].double().mean().item():.2f}, done {out_k[4].double().mean().item():.4f}, "
         f"infeas {out_k[5].double().mean().item():.4f}")
-    check(n_bad <= bar * B, f"{label} {dtype}: {n_bad} of {B} lanes disagree (bar {bar})")
+    check(n_bad == 0, f"{label} {dtype}: {n_bad} of {B} lanes disagree")
     check(d_lam == 0 and d_inv == 0,
           f"{label} {dtype}: {d_lam} lam / {d_inv} inverse entries differ on agreeing lanes")
     return err
@@ -282,6 +353,125 @@ def warm_gi_inputs(eng, out, thetas, rng):
     th = thetas + rng.normal(0.0, 0.5, thetas.shape)
     args, kw = gi_inputs(eng, th, torch.float32)
     return args[:6] + (out[0], out[1] | eng.arrays.is_eq, out[2]), dict(kw, retry_infeas=True)
+
+
+def record_calls(module, name: str, run) -> list:
+    """The (args, kwargs) of every call of ``module.name`` while ``run()``
+    runs (the launches a path makes, to replay them alone)."""
+    calls, orig = [], getattr(module, name)
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    setattr(module, name, rec)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return calls
+
+
+def gi_launches(eng_iu, mpc_iu, th_iu, eng_c, mpc_c, th_c, rng) -> dict:
+    """The K3/K4 launches of the large-m paths, as (fn, args, kwargs) by
+    label: the cold bulk phases of both tiers, the compact tier's second
+    chance (the 128 worst lanes, warm, s2 slots, retry) and one warm
+    rollout step of each tier (the 11th; K3 at 4096 lanes, K4 at 2048)."""
+    out = {}
+    args, kw = gi_inputs(eng_iu, th_iu, torch.float32)
+    out["K3 cold f32"] = (iu.phase1_iu, args + (eng_iu.iu_R0_init(len(th_iu)),), kw)
+    args, kw = gi_inputs(eng_c, th_c, torch.float32)
+    slots0, Rw0 = eng_c._ciu_cold_carry(len(th_c))
+    out["K4 cold f32"] = (ciu.phase1_ciu, args + (slots0, Rw0),
+                          dict(kw, max_iter=eng_c.bulk_cap_p))
+    th_dev = torch.as_tensor(th_c, device=eng_c.device)
+    calls = record_calls(ciu, "phase1_ciu", lambda: eng_c.solve_batch(th_dev))
+    a, k = next(c for c in calls if c[0][9].shape[1] == eng_c._ciu_s2
+                and c[1].get("retry_infeas"))
+    out["K4 second chance"] = (ciu.phase1_ciu, a, k)
+    for label, mod, name, mpc, B in (("K3 warm rollout step", iu, "phase1_iu", mpc_iu, B_ROLL_IU),
+                                     ("K4 warm rollout step", ciu, "phase1_ciu", mpc_c, B_ROLL_C)):
+        x0s, rs = rng.uniform(-0.25, 0.25, (B, 4)), np.zeros((B, 2))
+        calls = record_calls(mod, name, lambda: L.build_rollout(mpc)(x0s, rs, None, N=11))
+        a, k = calls[10]
+        out[label] = (getattr(mod, name), a, k)
+    return out
+
+
+def off_path_cases(eng_iu, eng_c, eng_160, big=8193, per_lane=4096, wide=512):
+    """(label, engine, B, dtype, entry) of the K3/K4 comparisons off the
+    paths' shapes: cold from one shared entry inverse at one lane, one lane
+    more than a block holds and ``big``; a per-lane eq; and the wide-team
+    paths, K3 f64 at m=160 (R in global memory) and K4 f64 at s=96."""
+    f32, f64 = torch.float32, torch.float64
+    return [("K3 B=1", eng_iu, 1, f32, "cold"),
+            ("K3 B=17 (a block's lanes + 1)", eng_iu, 17, f32, "cold"),
+            (f"K3 B={big}", eng_iu, big, f32, "cold"),
+            (f"K3 per-lane eq B={per_lane}", eng_iu, per_lane, f32, "eq"),
+            (f"K3 m=160 R in global memory B={wide}", eng_160, wide, f64, "cold"),
+            ("K4 B=1", eng_c, 1, f32, "cold"),
+            ("K4 B=17 (a block's lanes + 1)", eng_c, 17, f32, "cold"),
+            (f"K4 B={big}", eng_c, big, f32, "cold"),
+            (f"K4 per-lane eq B={per_lane}", eng_c, per_lane, f32, "eq"),
+            (f"K4 s=96 (wide team) B={wide}", eng_c, wide, f64, "s96")]
+
+
+def compare_off_path(cases):
+    """Each case's kernel against its plain version (compare_gi)."""
+    for label, eng, B, dtype, how in cases:
+        rng = np.random.default_rng(B)
+        args, kw = gi_inputs(eng, largem_thetas(rng, B, 10.0), dtype)
+        hi = eng.arrays if dtype == torch.float32 else eng.arrays_hi
+        m = eng.ldp.m
+        if how == "eq":
+            eq = torch.as_tensor(rng.uniform(size=(B, m)) < 0.05, device=eng.device)
+            args = args[:4] + (eq, args[5], args[6], eq, args[8])
+        if label.startswith("K3"):
+            inv = (iu.init_R_batch(hi.G_solve, args[7]) if how == "eq"
+                   else torch.eye(m, dtype=dtype, device=eng.device))
+            fn, plain, fields, inv_i = iu.phase1_iu, iu.phase1_iu_plain, K3_FIELDS, 6
+            args = args + (inv,)
+        else:
+            if how == "cold":
+                slots0, Rw0 = eng._ciu_cold_carry(B)
+                kw = dict(kw, max_iter=eng.bulk_cap_p)
+            else:
+                Rw0, slots0, _ = ciu.init_compact_batch(hi.G_solve, args[7],
+                                                        96 if how == "s96" else eng.ciu_s_max)
+            fn, plain, fields, inv_i = ciu.phase1_ciu, ciu.phase1_ciu_plain, K4_FIELDS, 8
+            args = args + (slots0, Rw0)
+        out_k = fn(*args, **kw)
+        out_p = plain(*args, **kw)
+        if out_k[0].is_cuda:
+            torch.cuda.synchronize()
+        compare_gi(label, out_k, out_p, fields, 0, inv_i, dtype)
+
+
+def fmt_ms(x) -> str:
+    return "not measured" if x is None else f"{x:.4f} ms"
+
+
+def replay_launches(launches: dict, timed: bool = True):
+    """Each recorded K3/K4 launch (``gi_launches``) against its plain
+    version, then its call time, device time, plain time and bound."""
+    for label, (fn, args, kw) in launches.items():
+        k3 = fn is iu.phase1_iu
+        plain = iu.phase1_iu_plain if k3 else ciu.phase1_ciu_plain
+        out_k = fn(*args, **kw)
+        out_p = plain(*args, **kw)
+        compare_gi(label, out_k, out_p, K3_FIELDS if k3 else K4_FIELDS, 0, 6 if k3 else 8,
+                   args[2].dtype)
+        if not timed:
+            continue
+        ms = cuda_ms(lambda: fn(*args, **kw), 10)
+        dev_ms = kernel_device_ms(lambda: [fn(*args, **kw) for _ in range(5)],
+                                  "iu_kernel" if k3 else "ciu_kernel")
+        ms_p = cuda_ms(lambda: plain(*args, **kw), 1, warmup=0)
+        b_ms, b_by = gi_bound(args, out_k)
+        log(f"    {label}: B={args[2].shape[0]}, s={args[-1].shape[-1]}, cap {kw['max_iter']}, "
+            f"retry {bool(kw.get('retry_infeas'))}, iterations mean "
+            f"{out_k[3].double().mean().item():.3f} max {int(out_k[3].max())}: call {ms:.4f} ms, "
+            f"device {fmt_ms(dev_ms)}, plain {ms_p:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
 
 
 def status_line(sol) -> str:
@@ -374,16 +564,24 @@ def main() -> int:
         if k2_err is None:
             k2_err = e
 
-    # the main path: golden, cold batch, rollout -- launches counted here
-    bulk.LAUNCHES = 0
-    polish.LAUNCHES = 0
+    # the small-m path: golden, cold batch, rollout -- launches counted here
+    by_path = {}
+    reset_counts()
 
-    # [4] golden single solve through setup(device="cuda")
+    # [4] golden single solve through setup(device="cuda"), and through
+    # setup() with no device, which runs on the card in float32
     mpc, _ = L.mpc_examples("invpend")
     mpc.setup(device="cuda", dtype=torch.float32)
     u = mpc.compute_control([5.0, 5.0, 0.0, 0.0])
-    log(f"[4] golden u = {u[0]:.10f} (expected {GOLDEN_U})")
+    mpc_default, _ = L.mpc_examples("invpend")
+    u_default = mpc_default.setup().compute_control([5.0, 5.0, 0.0, 0.0])
+    eng_default = mpc_default.engine
+    log(f"[4] golden u = {u[0]:.10f} (expected {GOLDEN_U}); setup() with no device: "
+        f"{eng_default.device} {str(eng_default.dtype)[6:]}, u = {u_default[0]:.10f}")
     check(abs(u[0] - GOLDEN_U) <= 1e-6, f"golden u {u[0]} off by more than 1e-6")
+    check(eng_default.device.type == "cuda" and eng_default.dtype == torch.float32,
+          f"setup() with no device ran on {eng_default.device} {eng_default.dtype}")
+    check(abs(u_default[0] - GOLDEN_U) <= 1e-6, f"default-device golden u {u_default[0]}")
 
     # [5] cold batched tier
     eng = mpc.engine
@@ -422,8 +620,9 @@ def main() -> int:
         f"mean iters {res.iters.double().mean().item():.3f}, first 8 lanes vs CPU f64 "
         f"rollout: max rel |du| {rel_u:.3e}")
     check(rel_u <= 1e-5, f"rollout vs CPU f64: {rel_u:.3e} > 1e-5")
-    launches = {"bulk": bulk.LAUNCHES, "polish": polish.LAUNCHES}
-    log(f"    main-path launches: K1 {launches['bulk']}, K2 {launches['polish']}")
+    by_path["small"] = read_counts()
+    launches = {"bulk": by_path["small"]["bulk"], "polish": by_path["small"]["polish"]}
+    log(f"    small-m path launches: K1 {launches['bulk']}, K2 {launches['polish']}")
     check(launches["bulk"] > 0 and launches["polish"] > 0, "a kernel was never launched")
 
     # [7] timings (CUDA events, after warm-up), at the main path's shapes
@@ -431,9 +630,24 @@ def main() -> int:
     kw = dict(max_iter=eng.bulk_cap, primal_tol=eng.primal_tol, sign_tol=eng.sign_tol)
     ms_k1 = cuda_ms(lambda: bulk.phase1(*args, **kw), 20)
     ms_k1p = cuda_ms(lambda: bulk.phase1_plain(*args, **kw), 3, warmup=1)
-    _, act, side, _, _ = bulk.phase1(*args, **kw)
+    out_k1 = bulk.phase1(*args, **kw)
+    act, side = out_k1[1], out_k1[2]
     ms_k2 = cuda_ms(lambda: polish.polish(eng._pd, th_dev, act, side), 20)
     ms_k2p = cuda_ms(lambda: polish.polish_plain(eng._pd, th_dev, act, side), 20)
+    dev_k1 = kernel_device_ms(lambda: [bulk.phase1(*args, **kw) for _ in range(5)],
+                              "phase1_kernel")
+    dev_k2 = kernel_device_ms(lambda: [polish.polish(eng._pd, th_dev, act, side)
+                                       for _ in range(5)], "polish_kernel")
+    # bounds: K1 per lane-iteration the subset solve and the slack (2 m^2
+    # each) and O(m) tests; K2 per lane the products of polish_plain
+    m5 = eng.ldp.m
+    n_u, nth = eng._pd.Uth_off.shape
+    k1_bound = bound(nbytes(*args) + nbytes(*out_k1),
+                     float(out_k1[3].double().sum()) * (4 * m5 * m5 + 10 * m5), torch.float32)
+    k2_flops = B_COLD * 2 * (m5 * nth + 2 * m5 * m5 + 2 * n_u * nth + n_u * m5 + n_u * n_u
+                             + 2 * n_u)
+    k2_bound = bound(nbytes(*eng._pd[:11], th_dev, act, side)
+                     + nbytes(*polish.polish(eng._pd, th_dev, act, side)), k2_flops, torch.float64)
     ms_tier = cuda_ms(lambda: eng.solve_batch(th_dev), 10)
     t0 = time.perf_counter()
     rollout(x0s, rs, None, N=N_ROLL)
@@ -449,8 +663,10 @@ def main() -> int:
                                lambda: rollout(x0s, rs, None, N=50), 50, 1e3 * t_roll / N_ROLL)
     card = card_line()
     log(f"[7] timings on {card}, invpend m=5, B={B_COLD}:")
-    log(f"    K1 {ms_k1:.4f} ms vs phase1_plain {ms_k1p:.4f} ms")
-    log(f"    K2 {ms_k2:.4f} ms vs polish_plain {ms_k2p:.4f} ms")
+    log(f"    K1 {ms_k1:.4f} ms (device {fmt_ms(dev_k1)}) vs phase1_plain {ms_k1p:.4f} ms; "
+        f"bound {k1_bound[0]:.5f} ms ({k1_bound[1]})")
+    log(f"    K2 {ms_k2:.4f} ms (device {fmt_ms(dev_k2)}) vs polish_plain {ms_k2p:.4f} ms; "
+        f"bound {k2_bound[0]:.5f} ms ({k2_bound[1]})")
     log(f"    tier {ms_tier:.4f} ms/batch = {B_COLD / ms_tier * 1e3:,.0f} solves/s")
     log(f"    rollout {B_ROLL} x {N_ROLL} in {t_roll:.3f} s = "
         f"{B_ROLL * N_ROLL / t_roll:,.0f} control-steps/s")
@@ -491,7 +707,7 @@ def main() -> int:
                                     torch.float32))
 
     # the IU path: cold tier and warm rollout -- K3's launches counted here
-    iu.LAUNCHES = 0
+    reset_counts()
     th_iu_dev = torch.as_tensor(th_iu, device=dev)
     sol = eng_iu.solve_batch(th_iu_dev)
     check(torch.isfinite(sol.U).all().item(), "IU tier: non-finite controls")
@@ -505,7 +721,8 @@ def main() -> int:
     check(wrong == 0, f"IU tier: {wrong} statuses contradict the oracle")
     roll_iu, x0_iu, rs_iu, _ = rollout_check("[10] IU rollout", mpc_iu, 12, rng,
                                              B_ROLL_IU, N_ROLL_IU, 8)
-    launches["iu"] = iu.LAUNCHES
+    by_path["iu"] = read_counts()
+    launches["iu"] = by_path["iu"]["iu"]
     log(f"    IU path launches: K3 {launches['iu']}")
     check(launches["iu"] > 0, "K3 was never launched on the IU path")
 
@@ -547,7 +764,7 @@ def main() -> int:
                                     torch.float32))
 
     # the compact path: cold tier and warm rollout -- K4's launches counted here
-    ciu.LAUNCHES = 0
+    reset_counts()
     th_c_dev = torch.as_tensor(th_c, device=dev)
     sol = eng_c.solve_batch(th_c_dev)
     check(torch.isfinite(sol.U).all().item(), "compact tier: non-finite controls")
@@ -564,7 +781,8 @@ def main() -> int:
     check(wrong == 0, f"compact tier: {wrong} statuses contradict the oracle")
     roll_c, x0_c, rs_c, _ = rollout_check("[13] compact rollout", mpc_c, 32, rng,
                                           B_ROLL_C, N_ROLL_C, 0)
-    launches["ciu"] = ciu.LAUNCHES
+    by_path["compact"] = read_counts()
+    launches["ciu"] = by_path["compact"]["ciu"]
     log(f"    compact path launches: K4 {launches['ciu']}")
     check(launches["ciu"] > 0, "K4 was never launched on the compact path")
 
@@ -579,6 +797,12 @@ def main() -> int:
     sl04, Rw04 = eng_c._ciu_cold_carry(B_LARGE)
     ms_k4 = cuda_ms(lambda: ciu.phase1_ciu(*args4, sl04, Rw04, **kw4), 10)
     ms_k4p = cuda_ms(lambda: ciu.phase1_ciu_plain(*args4, sl04, Rw04, **kw4), 1, warmup=1)
+    k3_bound = gi_bound(args3 + (R03,), iu.phase1_iu(*args3, R03, **kw3))
+    k4_bound = gi_bound(args4 + (sl04, Rw04), ciu.phase1_ciu(*args4, sl04, Rw04, **kw4))
+    dev_k3 = kernel_device_ms(lambda: [iu.phase1_iu(*args3, R03, **kw3) for _ in range(5)],
+                              "iu_kernel")
+    dev_k4 = kernel_device_ms(lambda: [ciu.phase1_ciu(*args4, sl04, Rw04, **kw4)
+                                       for _ in range(5)], "ciu_kernel")
     ms_iu = cuda_ms(lambda: eng_iu.solve_batch(th_iu_dev), 5)
     ms_c = cuda_ms(lambda: eng_c.solve_batch(th_c_dev), 5)
     t_rolls = {}
@@ -606,8 +830,10 @@ def main() -> int:
     ]
     card = card_line()
     log(f"[14] timings on {card}, m=48 (IU) and m={m_c} (compact), B={B_LARGE}:")
-    log(f"    K3 {ms_k3:.4f} ms vs phase1_iu_plain {ms_k3p:.4f} ms")
-    log(f"    K4 {ms_k4:.4f} ms vs phase1_ciu_plain {ms_k4p:.4f} ms")
+    log(f"    K3 {ms_k3:.4f} ms (device {fmt_ms(dev_k3)}) vs phase1_iu_plain {ms_k3p:.4f} ms; "
+        f"bound {k3_bound[0]:.5f} ms ({k3_bound[1]})")
+    log(f"    K4 {ms_k4:.4f} ms (device {fmt_ms(dev_k4)}) vs phase1_ciu_plain {ms_k4p:.4f} ms; "
+        f"bound {k4_bound[0]:.5f} ms ({k4_bound[1]})")
     log(f"    IU tier {ms_iu:.4f} ms/batch = {B_LARGE / ms_iu * 1e3:,.0f} solves/s")
     log(f"    compact tier {ms_c:.4f} ms/batch = {B_LARGE / ms_c * 1e3:,.0f} solves/s")
     log(f"    IU rollout {B_ROLL_IU} x {N_ROLL_IU} in {t_rolls['iu']:.3f} s = "
@@ -617,27 +843,47 @@ def main() -> int:
     for text in profs:
         log(text)
 
+    # [15] K3/K4 against their plain versions off the paths' shapes
+    log("[15] K3/K4 vs plain: ragged batches from one shared entry inverse, a per-lane eq, "
+        "the wide-team paths")
+    eng_160 = largem_mpc(40, dev, torch.float32).engine
+    check(eng_160.ldp.m == 160, f"m=160 case: m={eng_160.ldp.m}")
+    compare_off_path(off_path_cases(eng_iu, eng_c, eng_160))
+
+    # [16] the K3/K4 launches of the large-m paths, replayed alone
+    log("[16] K3/K4 launches of the large-m paths: vs plain, call / device / plain time, bound")
+    replay_launches(gi_launches(eng_iu, mpc_iu, th_iu, eng_c, mpc_c, th_c,
+                                np.random.default_rng(3)))
+
+    # the counts of each kernel on each path's run
+    per_path = lambda k: {p: by_path[p][k] for p in PATHS}
+    none = "none: no single PyTorch call computes an early-exit active-set iteration"
+    log(f"    library call for K1-K4: {none}")
     kernels = [
         {"name": "K1 bulk phase", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/bulk.cu",
          "replaces": "linearmpc_tpu/ops/pallas_solver.py:58",
-         "launches": launches["bulk"], "max_abs_err": k1_err,
-         "ms": ms_k1, "plain_ms": ms_k1p},
+         "launches": launches["bulk"], "launches_by_path": per_path("bulk"),
+         "max_abs_err": k1_err, "ms": ms_k1, "device_ms": dev_k1, "plain_ms": ms_k1p,
+         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
         {"name": "K2 polish", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/polish.cu",
          "replaces": "linearmpc_tpu/ops/pallas_polish.py:144",
-         "launches": launches["polish"], "max_abs_err": k2_err,
-         "ms": ms_k2, "plain_ms": ms_k2p},
+         "launches": launches["polish"], "launches_by_path": per_path("polish"),
+         "max_abs_err": k2_err, "ms": ms_k2, "device_ms": dev_k2, "plain_ms": ms_k2p,
+         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
         {"name": "K3 GI inverse update", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/iu.cu",
          "replaces": "linearmpc_tpu/ops/pallas_iu.py:107",
-         "launches": launches["iu"], "max_abs_err": k3_err,
-         "ms": ms_k3, "plain_ms": ms_k3p},
+         "launches": launches["iu"], "launches_by_path": per_path("iu"),
+         "max_abs_err": k3_err, "ms": ms_k3, "device_ms": dev_k3, "plain_ms": ms_k3p,
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
         {"name": "K4 compact GI", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/ciu.cu",
          "replaces": "linearmpc_tpu/ops/pallas_ciu.py:113",
-         "launches": launches["ciu"], "max_abs_err": k4_err,
-         "ms": ms_k4, "plain_ms": ms_k4p},
+         "launches": launches["ciu"], "launches_by_path": per_path("ciu"),
+         "max_abs_err": k4_err, "ms": ms_k4, "device_ms": dev_k4, "plain_ms": ms_k4p,
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

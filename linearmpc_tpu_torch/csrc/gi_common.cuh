@@ -1,25 +1,43 @@
 // The Goldfarb-Idnani lane loop shared by the kernels K3 (iu.cu) and K4
-// (ciu.cu), and its block-level helpers. One thread block runs one lane;
-// thread t owns rows t, t+nt, ... of every per-row array, and every
-// reduction that decides the next step is exact and ordered:
+// (ciu.cu), built for Hopper: a team of NT threads runs one lane. NT is one
+// warp wherever the lane's inverse fits in shared memory and s <= 64, so a
+// block holds several lanes, every barrier is a __syncwarp and a lane that
+// finishes takes the next one from a work counter without waiting for the
+// rest of its block. Above that (the f64 guard ladder at s = 96-192, K3 at
+// m = 160 with R in global memory) the same loop runs with a 128-thread
+// team, one lane per block. Thread t of a team owns rows t, t+NT, ... of
+// every per-row array and of the inverse. Every reduction that decides a
+// step is exact and ordered:
 //
 //  * argmin / argmax keep the first hit (lowest index on ties), as the
-//    Pallas kernels' first-hit masks and torch.argmin/argmax do;
+//    Pallas kernels' first-hit masks and torch.argmin/argmax do, and a NaN
+//    wins as in torch (the first NaN): each thread scans its rows in order,
+//    then a shuffle tree combines the warp. Clamps, maxima and minima pass
+//    NaN on as torch's do, so a lane whose arithmetic breaks down follows
+//    the plain version step for step;
 //  * every dot product and matvec row sums in index order, one product at
 //    a time (the library is built with -fmad=false), as the plain torch
-//    versions do, so kernel and plain version agree bit for bit. Zero
-//    entries of the vector are skipped: they add +-0 and leave every
-//    partial sum's value unchanged.
+//    versions do, so kernel and plain version agree bit for bit. The sums
+//    run over the ascending list of the vector's nonzero entries (one bit
+//    mask word per 32 entries, built by a warp ballot, walked with __ffs): a
+//    zero entry adds +-0 and leaves every partial sum's value unchanged, so
+//    the list drops no term that counts and there is no branch per term.
+//    A thread carries up to kRows rows through one walk of the list, so
+//    their products are independent and overlap in the pipeline. Once the
+//    carried inverse holds a value that is not finite (0 * inf is NaN), the
+//    lists take every index.
 //
 // The two kernels differ only in where the carried working-set inverse
 // lives. K3 carries the masked inverse R over all m rows (s = m, index k
 // is row k, in the working set when the row is active). K4 carries Rw
-// over s slots with the int map slot_row[s] (-1 free) and its inverse
-// slot_of[m], in place of the Pallas kernel's one-hot (s*m) SEL: an add
-// takes the first free slot, a removal frees the row's slot, and a full
-// add with every slot occupied sets the lane's overflow flag and ends it.
+// over s slots with the int map slot_row[s] (-1 free), its inverse
+// slot_of[m] and a free-slot bit mask, in place of the Pallas kernel's
+// one-hot (s*m) SEL: an add takes the first free slot (__ffs of the mask),
+// a removal frees the row's slot, and a full add with every slot occupied
+// sets the lane's overflow flag and ends it.
 #pragma once
 
+#include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -27,68 +45,169 @@
 
 namespace gi {
 
-constexpr int kMaxThreads = 256;
-constexpr size_t kSmemLimit = 200 * 1024;
+constexpr int kWide = 128;                // threads of a wide team
+constexpr int kMaxLanesPerBlock = 16;     // warps (lanes) of a narrow block
+constexpr int kRows = 2;                  // rows a thread carries through one list walk
+constexpr size_t kInvLimit = 200 * 1024;  // one lane's arrays with its inverse
+// a block's dynamic shared memory: sm_90's 232448 bytes less room for the
+// kernel's static shared variables
+constexpr size_t kBlockSmem = 232448 - 1024;
+constexpr unsigned kFull = 0xffffffffu;
 
+// (ov, oi) beats (v, i) in torch's arg-reduction order: a NaN first, then
+// the smaller (is_min) or larger value, the lower index on ties.
 template <typename T>
 __device__ __forceinline__ bool better(bool is_min, T ov, int oi, T v, int i) {
-  return is_min ? (ov < v || (ov == v && oi < i)) : (ov > v || (ov == v && oi < i));
-}
-
-// First-hit arg-reduction over the block. Each thread passes the best
-// (value, index) over its own rows (index INT_MAX when it has none); the
-// block's best lands in *out_v / *out_i (index clamped to 0 when no row
-// qualified). Ends with __syncthreads().
-template <typename T>
-__device__ void block_arg(bool is_min, T v, int i, T* red_v, int* red_i, T* out_v,
-                          int* out_i) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const T ov = __shfl_down_sync(0xffffffffu, v, o);
-    const int oi = __shfl_down_sync(0xffffffffu, i, o);
-    if (better(is_min, ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  if (lane == 0) {
-    red_v[w] = v;
-    red_i[w] = i;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T bv = red_v[0];
-    int bi = red_i[0];
-    const int nw = (blockDim.x + 31) >> 5;
-    for (int k = 1; k < nw; ++k)
-      if (better(is_min, red_v[k], red_i[k], bv, bi)) {
-        bv = red_v[k];
-        bi = red_i[k];
-      }
-    *out_v = bv;
-    *out_i = bi == INT_MAX ? 0 : bi;
-  }
-  __syncthreads();
+  if (isnan(ov)) return !isnan(v) || oi < i;
+  if (isnan(v)) return false;
+  return ov == v ? oi < i : (is_min ? ov < v : ov > v);
 }
 
 // Per-thread first-hit update while scanning rows in increasing order.
 template <typename T>
 __device__ __forceinline__ void scan(bool is_min, T v, int i, T& bv, int& bi) {
-  if (bi == INT_MAX || (is_min ? v < bv : v > bv)) {
+  if (bi == INT_MAX || better(is_min, v, i, bv, bi)) {
     bv = v;
     bi = i;
   }
 }
 
-// sum_j row[j * stride] * x[j] over j = 0..n-1 in index order.
+// torch.maximum / torch.minimum / clamp_min: NaN passes through.
 template <typename T>
-__device__ __forceinline__ T dot(const T* row, int stride, const T* x, int n) {
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return isnan(a) ? a : (isnan(b) ? b : (a > b ? a : b));
+}
+template <typename T>
+__device__ __forceinline__ T nan_min(T a, T b) {
+  return isnan(a) ? a : (isnan(b) ? b : (a < b ? a : b));
+}
+template <typename T>
+__device__ __forceinline__ T clamp_min0(T a) {
+  return (a > T(0) || isnan(a)) ? a : T(0);
+}
+
+template <int NT>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (NT == 32) {
+    __syncwarp();
+  } else {
+    __syncthreads();
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ bool team_any(int p) {
+  if constexpr (NT == 32) {
+    return __any_sync(kFull, p) != 0;
+  } else {
+    return __syncthreads_or(p) != 0;
+  }
+}
+
+// First-hit arg-reduction over the team. Each thread passes the best
+// (value, index) over its own rows (index INT_MAX when it has none); every
+// thread gets the team's best (index clamped to 0 when no row qualified).
+template <int NT, typename T>
+__device__ __forceinline__ void team_arg(bool is_min, T& v, int& i, T* red_v, int* red_i) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const T ov = __shfl_down_sync(kFull, v, o);
+    const int oi = __shfl_down_sync(kFull, i, o);
+    if (better(is_min, ov, oi, v, i)) {
+      v = ov;
+      i = oi;
+    }
+  }
+  v = __shfl_sync(kFull, v, 0);
+  i = __shfl_sync(kFull, i, 0);
+  if constexpr (NT > 32) {
+    const int w = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      red_v[w] = v;
+      red_i[w] = i;
+    }
+    __syncthreads();
+    v = red_v[0];
+    i = red_i[0];
+    for (int k = 1; k < NT / 32; ++k)
+      if (better(is_min, red_v[k], red_i[k], v, i)) {
+        v = red_v[k];
+        i = red_i[k];
+      }
+    __syncthreads();
+  }
+  if (i == INT_MAX) i = 0;
+}
+
+template <int NT>
+__device__ __forceinline__ int team_sum(int v, int* red_i) {
+  v = __reduce_add_sync(kFull, v);
+  if constexpr (NT > 32) {
+    if ((threadIdx.x & 31) == 0) red_i[threadIdx.x >> 5] = v;
+    __syncthreads();
+    v = 0;
+    for (int k = 0; k < NT / 32; ++k) v += red_i[k];
+    __syncthreads();
+  }
+  return v;
+}
+
+// Word w of the mask of every index below n.
+__device__ __forceinline__ unsigned all_bits(int w, int n) {
+  const int r = n - (w << 5);
+  return r >= 32 ? kFull : ((1u << r) - 1u);
+}
+
+// The ascending list of a vector's nonzero entries is kept as a bit set,
+// one word per 32 indices (built by a warp ballot) and walked with __ffs.
+
+// out[k] = sum of A[k * rs + j * cs] * x[j] over the list mx (ascending j),
+// for the team's rows k = tid, tid + NT, ... < n. kRows rows share one walk
+// of the list, so their products are independent and overlap.
+template <typename T, int NT>
+__device__ __forceinline__ void matvec_nz(T* out, const T* A, int rs, int cs, const T* x,
+                                          const unsigned* mx, int nw, int n, int tid) {
+  for (int k0 = tid; k0 < n; k0 += NT * kRows) {
+    T acc[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) acc[r] = T(0);
+    bool any = false;
+    for (int w = 0; w < nw; ++w) {
+      unsigned bits = mx[w];
+      while (bits) {
+        const int j = (w << 5) + __ffs(bits) - 1;
+        bits &= bits - 1;
+        const T xj = x[j];
+        const T* col = A + static_cast<size_t>(j) * cs;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const int k = k0 + r * NT;
+          if (k < n) {
+            const T p = col[static_cast<size_t>(k) * rs] * xj;
+            acc[r] = any ? acc[r] + p : p;
+          }
+        }
+        any = true;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int k = k0 + r * NT;
+      if (k < n) out[k] = acc[r];
+    }
+  }
+}
+
+// sum of a[j] * b[j] over the list mx, ascending.
+template <typename T>
+__device__ __forceinline__ T dot_nz(const T* a, const T* b, const unsigned* mx, int nw) {
   T acc = T(0);
   bool any = false;
-  for (int j = 0; j < n; ++j) {
-    const T xj = x[j];
-    if (xj != T(0)) {
-      const T p = row[static_cast<size_t>(j) * stride] * xj;
+  for (int w = 0; w < nw; ++w) {
+    unsigned bits = mx[w];
+    while (bits) {
+      const int j = (w << 5) + __ffs(bits) - 1;
+      bits &= bits - 1;
+      const T p = a[j] * b[j];
       acc = any ? acc + p : p;
       any = true;
     }
@@ -96,12 +215,27 @@ __device__ __forceinline__ T dot(const T* row, int stride, const T* x, int n) {
   return acc;
 }
 
-// p[0] + p[1] + ... + p[n-1] in index order.
+// (sum of a[j] * b[j], sum of a[j] * c[j]) over the list mx, ascending: two
+// independent serial sums in one walk.
 template <typename T>
-__device__ __forceinline__ T serial_sum(const T* p, int n) {
-  T acc = p[0];
-  for (int k = 1; k < n; ++k) acc += p[k];
-  return acc;
+__device__ __forceinline__ void dot2_nz(const T* a, const T* b, const T* c, const unsigned* mx,
+                                        int nw, T& sb, T& sc) {
+  T ab = T(0), ac = T(0);
+  bool any = false;
+  for (int w = 0; w < nw; ++w) {
+    unsigned bits = mx[w];
+    while (bits) {
+      const int j = (w << 5) + __ffs(bits) - 1;
+      bits &= bits - 1;
+      const T aj = a[j];
+      const T pb = aj * b[j], pc = aj * c[j];
+      ab = any ? ab + pb : pb;
+      ac = any ? ac + pc : pc;
+      any = true;
+    }
+  }
+  sb = ab;
+  sc = ac;
 }
 
 template <typename T>
@@ -109,14 +243,102 @@ __device__ __forceinline__ T inf() {
   return static_cast<T>(INFINITY);
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// The s x s inverse between the dense row-major g and R (leading dimension
+// ld): kOut = false copies g into R, true copies R into g. Thread tid takes
+// 16-byte vectors tid, tid + nt, ... of g where it is aligned (single
+// elements otherwise), kBatch of them in flight at a time; the (row,
+// column) of R advances incrementally, with no division per element.
+// Returns whether this thread copied a value that is not finite.
+template <typename T, bool kOut>
+__device__ __forceinline__ int copy_inv(T* R, int ld, T* g, int s, int tid, int nt) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kBatch = 4;
+  int nonfinite = 0;
+  union Vec {
+    float4 v;
+    T t[V];
+  };
+  const int n = s * s;
+  const int w = (aligned16(g) && n % V == 0) ? V : 1;
+  const int step = nt * w;
+  const int dk = step / s, dj = step - dk * s;
+  int e = tid * w;
+  int k = e / s, j = e - k * s;
+  for (; e < n; e += kBatch * step) {
+    Vec buf[kBatch];
+    int ks[kBatch], js[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int eu = e + u * step;
+      ks[u] = k;
+      js[u] = j;
+      if (!kOut && eu < n) {
+        if (w == V) {
+          buf[u].v = *reinterpret_cast<const float4*>(g + eu);
+        } else {
+          buf[u].t[0] = g[eu];
+        }
+      }
+      j += dj;
+      k += dk;
+      if (j >= s) {
+        j -= s;
+        ++k;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int eu = e + u * step;
+      if (eu >= n) continue;
+      int kk = ks[u], jj = js[u];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        if (v < w) {
+          if (kOut) {
+            buf[u].t[v] = R[kk * ld + jj];
+          } else {
+            R[kk * ld + jj] = buf[u].t[v];
+            nonfinite |= !isfinite(buf[u].t[v]);
+          }
+          if (++jj == s) {
+            jj = 0;
+            ++kk;
+          }
+        }
+      }
+      if (kOut) {
+        if (w == V) {
+          *reinterpret_cast<float4*>(g + eu) = buf[u].v;
+        } else {
+          g[eu] = buf[u].t[0];
+        }
+      }
+    }
+  }
+  return nonfinite;
+}
+
+// R = I over the s x s inverse (the cold start of the warm-ray retry).
+template <typename T>
+__device__ __forceinline__ void set_identity(T* R, int ld, int s, int tid, int nt) {
+  for (int k = tid; k < s; k += nt)
+    for (int j = 0; j < s; ++j) R[k * ld + j] = (k == j) ? T(1) : T(0);
+}
+
 // One launch of a GI bulk phase. Arrays batch-major: du/dl/lam0 (B, m),
-// inv0/inv (B, s, s) row-major, slots0/slots (B, s) int32, bool arrays one
-// byte per entry; GT and GsT are G and the GI Gram matrix transposed (m,
-// m); eq is (m,) with eq_stride 0 or (B, m) with eq_stride m. The slot
-// arrays and ovf are K4's only.
+// inv (B, s, s) row-major, inv0 the same with batch stride inv0_stride (0:
+// one (s, s) entry inverse shared by every lane), slots0/slots (B, s)
+// int32, bool arrays one byte per entry; GT and GsT are G and the GI Gram
+// matrix transposed (m, m); eq is (m,) with eq_stride 0 or (B, m) with
+// eq_stride m; work is one int the launch zeroes and the teams count lanes
+// on. The slot arrays and ovf are K4's only.
 template <typename T>
 struct Args {
-  int m, s;
+  int m, s, B;
   const T* GT;
   const T* GsT;
   const T* du_t;
@@ -129,6 +351,7 @@ struct Args {
   const uint8_t* side0;
   const int32_t* slots0;
   const T* inv0;
+  long long inv0_stride;
   T* lam;
   uint8_t* act;
   uint8_t* side;
@@ -138,13 +361,32 @@ struct Args {
   uint8_t* ovf;
   int32_t* slots;
   T* inv;
+  int* work;
   int max_iter;
   T ptol, stol, gtol, big;
   int retry;
-  int inv_in_smem;  // set by launch()
+  // set by launch()
+  int inv_in_smem;
+  int g_staged;  // 0: G and G_solve read through L2, 1: G in shared memory, 2: both
+  int lane_bytes;
 };
 
-// The lane loop of blockIdx.x: until it converges, is flagged infeasible
+__host__ __device__ __forceinline__ size_t up16(size_t x) { return (x + 15) & ~size_t(15); }
+
+// Shared-memory bytes of one lane, in the order lane() carves them: 9 row
+// vectors and 5 inverse-space vectors, the inverse where it lives there
+// (rows padded to an odd stride, so the row-per-thread matvecs are free of
+// bank conflicts), the wide team's reduction scratch, K4's slot maps, the
+// index lists of xw, lam_base and the update's support and K4's free slots
+// (one bit per index), and four byte flags per row.
+template <typename T, bool kSlots>
+__host__ __device__ __forceinline__ size_t lane_bytes(int m, int s, bool inv_in_smem) {
+  const size_t nwm = (m + 31) / 32, nws = (s + 31) / 32;
+  return up16(sizeof(T) * (9 * m + 5 * s + (inv_in_smem ? s * (s + 1) : 0) + 4) +
+              sizeof(int) * (4 + (kSlots ? s + m : 0)) + 4 * (3 * nws + nwm) + 4 * m);
+}
+
+// The loop of lane b: until it converges, is flagged infeasible
 // (dual-unbounded ray), overflows its slots (K4) or reaches max_iter; with
 // retry != 0, a lane flagged from its warm start is reset to a cold start
 // (empty set, identity inverse, every slot free) and every lane not done
@@ -157,12 +399,19 @@ struct Args {
 // direction inv @ v_j, Schur complement gamma, primal step viol / gamma
 // against the first dual blocker ROW; then the rank-2 Woodbury update of
 // the inverse at the one index that changed, as a where-select so a det ~ 0
-// update cannot poison it (pallas_iu.py:285-289).
-template <typename T, bool kSlots>
-__device__ __forceinline__ void lane(const Args<T>& a) {
+// update cannot poison it (pallas_iu.py:285-289). Every product walks the
+// ascending list of its vector's nonzero entries. The update touches only
+// the rows and columns where the changed column or the new product is
+// nonzero: elsewhere it adds +-0. Where a factor of it is not finite it
+// runs over the whole inverse, so NaN and inf spread as in the plain one.
+template <typename T, bool kSlots, int NT>
+__device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const T* GsT,
+                                     unsigned char* base) {
   const int m = a.m, s = a.s;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* lam = reinterpret_cast<T*>(smem_raw);
+  const int tid = NT == 32 ? (threadIdx.x & 31) : threadIdx.x;
+  const int ln = threadIdx.x & 31, wid = NT == 32 ? 0 : (threadIdx.x >> 5);
+  const int nwm = (m + 31) >> 5, nws = (s + 31) >> 5;
+  T* lam = reinterpret_cast<T*>(base);
   T* ls = lam + m;    // lam* in row space
   T* lb = ls + m;     // working point lam_base
   T* c = lb + m;      // G @ lam_base
@@ -174,13 +423,18 @@ __device__ __forceinline__ void lane(const Args<T>& a) {
   T* xw = dvr + m;    // inverse-space vectors: rhs, v_j, v_ch
   T* yw = xw + s;     // inv @ xw
   T* Re = yw + s;     // inv[:, changed index]
-  T* p1 = Re + s;
-  T* p2 = p1 + s;
-  T* Rs = p2 + s;
-  int* slot_row = reinterpret_cast<int*>(Rs + (a.inv_in_smem ? s * (s + 1) : 0));
-  int* slot_of = slot_row + s;
-  uint8_t* act = kSlots ? reinterpret_cast<uint8_t*>(slot_of + m)
-                        : reinterpret_cast<uint8_t*>(slot_row);
+  T* t0s = Re + s;    // the Woodbury factors of each row
+  T* t1s = t0s + s;
+  T* Rs = t1s + s;
+  T* red_v = Rs + (a.inv_in_smem ? s * (s + 1) : 0);
+  int* red_i = reinterpret_cast<int*>(red_v + 4);
+  int* slot_row = red_i + 4;
+  int* slot_of = slot_row + (kSlots ? s : 0);
+  unsigned* mx = reinterpret_cast<unsigned*>(slot_of + (kSlots ? m : 0));  // xw's list
+  unsigned* mb = mx + nws;       // lam_base's list
+  unsigned* msup = mb + nwm;     // the update's support: Re != 0 or yw != 0
+  unsigned* mfree = msup + nws;  // free slots (K4)
+  uint8_t* act = reinterpret_cast<uint8_t*>(mfree + nws);
   uint8_t* side = act + m;
   uint8_t* eq = side + m;
   uint8_t* immut = eq + m;
@@ -200,104 +454,123 @@ __device__ __forceinline__ void lane(const Args<T>& a) {
     if constexpr (kSlots) return slot_row[k] >= 0;
     return act[k] != 0;
   };
+  // the list of the k < n where pred(k): one ballot word per 32 indices,
+  // over this warp's chunks; pred(k) reads what the thread that owns k wrote
+  auto ballots = [&](int n, unsigned* mask, auto&& pred) {
+    for (int k0 = wid * 32; k0 < n; k0 += NT) {
+      const unsigned word = __ballot_sync(kFull, k0 + ln < n && pred(k0 + ln));
+      if (ln == 0) mask[k0 >> 5] = word;
+    }
+  };
+  // dense: the inverse holds a value that is not finite, so a zero entry of
+  // the vector it multiplies counts too (0 * inf is NaN)
+  bool dense = false;
+  auto list_xw = [&] {
+    ballots(s, mx, [&](int k) { return dense || xw[k] != T(0); });
+    team_sync<NT>();
+  };
 
-  __shared__ T red_v[32];
-  __shared__ int red_i[32];
-  __shared__ T sv_[3];
-  __shared__ int si_[3];
-  __shared__ T s_gamma, s_a21, s_a22;
-  __shared__ int s_pend, s_pend_side, s_done, s_infeas, s_ovf, s_iters, s_nocc, s_nact;
-
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
   const size_t ob = static_cast<size_t>(b) * m;
   const size_t ss = static_cast<size_t>(s) * s;
   T* R = a.inv_in_smem ? Rs : a.inv + b * ss;
   const int ld = a.inv_in_smem ? s + 1 : s;
   const T tiny = T(1e-30), big = a.big;
 
-  if (tid == 0) {
-    s_pend = -1;
-    s_pend_side = 1;
-    s_infeas = 0;
-    s_iters = 0;
-    s_nocc = 0;
-    s_nact = 0;
+  const int inv0_nonfinite =
+      copy_inv<T, false>(R, ld, const_cast<T*>(a.inv0 + b * a.inv0_stride), s, tid, NT);
+  // the lane's rows: kRows rows' loads in flight before their stores
+  int nact = 0;
+  for (int i0 = tid; i0 < m; i0 += NT * kRows) {
+    T r_du[kRows], r_dl[kRows], r_l0[kRows];
+    uint8_t r_a[kRows], r_s[kRows], r_e[kRows], r_im[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = i0 + r * NT;
+      if (i < m) {
+        r_du[r] = a.du_t[ob + i];
+        r_dl[r] = a.dl_t[ob + i];
+        r_l0[r] = a.lam0[ob + i];
+        r_a[r] = a.act0[ob + i];
+        r_s[r] = a.side0[ob + i];
+        r_e[r] = a.eq[static_cast<size_t>(b) * a.eq_stride + i];
+        r_im[r] = a.immut[i];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const int i = i0 + r * NT;
+      if (i < m) {
+        du[i] = r_du[r];
+        dl[i] = r_dl[r];
+        act[i] = r_a[r] != 0;
+        side[i] = r_s[r] != 0;
+        lam[i] = r_a[r] ? r_l0[r] : T(0);
+        eq[i] = r_e[r] != 0;
+        immut[i] = r_im[r] != 0;
+        nact += r_a[r] != 0;
+        if constexpr (kSlots) slot_of[i] = -1;
+      }
+    }
   }
-  for (int e = tid; e < s * s; e += nt) R[(e / s) * ld + e % s] = a.inv0[b * ss + e];
-  for (int i = tid; i < m; i += nt) {
-    du[i] = a.du_t[ob + i];
-    dl[i] = a.dl_t[ob + i];
-    act[i] = a.act0[ob + i] != 0;
-    side[i] = a.side0[ob + i] != 0;
-    lam[i] = act[i] ? a.lam0[ob + i] : T(0);
-    eq[i] = a.eq[static_cast<size_t>(b) * a.eq_stride + i] != 0;
-    immut[i] = a.immut[i] != 0;
-    if constexpr (kSlots) slot_of[i] = -1;
-  }
-  __syncthreads();
+  int nocc = 0;  // occupied slots (K4)
   if constexpr (kSlots) {
-    for (int k = tid; k < s; k += nt) {
+    nact = team_sum<NT>(nact, red_i);
+    team_sync<NT>();
+    for (int k = tid; k < s; k += NT) {
       const int r = a.slots0[static_cast<size_t>(b) * s + k];
       slot_row[k] = r;
-      if (r >= 0) {
-        slot_of[r] = k;
-        atomicAdd(&s_nocc, 1);
-      }
+      if (r >= 0) slot_of[r] = k;
+      nocc += r >= 0;
     }
-    for (int i = tid; i < m; i += nt)
-      if (act[i]) atomicAdd(&s_nact, 1);
-    __syncthreads();
+    ballots(s, mfree, [&](int k) { return slot_row[k] < 0; });
+    nocc = team_sum<NT>(nocc, red_i);
   }
-  if (tid == 0) {
-    s_ovf = kSlots && s_nact > s;  // the entry working set does not fit the slots
-    s_done = s_ovf;
-  }
-  __syncthreads();
+  team_sync<NT>();
+
+  dense = team_any<NT>(inv0_nonfinite);
+  int ovf = kSlots && nact > s;  // the entry working set does not fit the slots
+  int done = ovf, infeas = 0, iters = 0, pend = -1, pend_side = 1;
 
   for (int phase = 0; phase < (a.retry ? 2 : 1); ++phase) {
-    if (phase == 1) {
+    if (phase == 1 && infeas) {
       // a ray found from a warm start is not trusted: restart cold
-      const bool flag = s_infeas != 0;
-      __syncthreads();
-      if (flag) {
-        for (int i = tid; i < m; i += nt) {
-          lam[i] = T(0);
-          act[i] = 0;
-          side[i] = 1;
-          if constexpr (kSlots) slot_of[i] = -1;
-        }
-        if constexpr (kSlots)
-          for (int k = tid; k < s; k += nt) slot_row[k] = -1;
-        for (int e = tid; e < s * s; e += nt)
-          R[(e / s) * ld + e % s] = (e / s == e % s) ? T(1) : T(0);
-        if (tid == 0) {
-          s_pend = -1;
-          s_done = 0;
-          s_infeas = 0;
-          s_nocc = 0;
-        }
+      for (int i = tid; i < m; i += NT) {
+        lam[i] = T(0);
+        act[i] = 0;
+        side[i] = 1;
+        if constexpr (kSlots) slot_of[i] = -1;
       }
-      __syncthreads();
+      if constexpr (kSlots) {
+        for (int k = tid; k < s; k += NT) slot_row[k] = -1;
+        for (int w = tid; w < nws; w += NT) mfree[w] = all_bits(w, s);
+      }
+      set_identity(R, ld, s, tid, NT);
+      dense = false;
+      pend = -1;
+      done = 0;
+      infeas = 0;
+      nocc = 0;
+      team_sync<NT>();
     }
     for (int it = 0; it < a.max_iter; ++it) {
-      if (s_done) break;
-      const int pend = s_pend;
+      if (done) break;
       const bool pending = pend >= 0;
 
       // -- jump target lam* = inv @ rhs, read back into row space
-      for (int k = tid; k < s; k += nt) {
+      for (int k = tid; k < s; k += NT) {
         const int r = row_at(k);
         xw[k] = (r >= 0 && act[r]) ? -(side[r] ? du[r] : dl[r]) : T(0);
       }
-      __syncthreads();
-      for (int k = tid; k < s; k += nt) yw[k] = dot(R + k * ld, 1, xw, s);
-      __syncthreads();
+      list_xw();
+      matvec_nz<T, NT>(yw, R, ld, 1, xw, mx, nws, s, tid);
+      team_sync<NT>();
 
-      // -- sign check (suspended mid-add) and the blocking candidate
-      T bv = inf<T>();
-      int bi = INT_MAX;
+      // -- sign check (suspended mid-add), the blocking candidate and the
+      //    working point lam_base
+      T bvv = inf<T>();
+      int bii = INT_MAX;
       int any_viol = 0;
-      for (int i = tid; i < m; i += nt) {
+      for (int i = tid; i < m; i += NT) {
         const int k = index_of(i);
         const T lsi = k >= 0 ? yw[k] : T(0);
         ls[i] = lsi;
@@ -309,84 +582,79 @@ __device__ __forceinline__ void lane(const Args<T>& a) {
           al = lam[i] / safe;
           any_viol = 1;
         }
-        scan(true, al, i, bv, bi);
+        scan(true, al, i, bvv, bii);
         lb[i] = pending ? lam[i] : (act[i] ? lsi : T(0));
       }
-      const bool hv = __syncthreads_or(any_viol) != 0;
-      block_arg(true, bv, bi, red_v, red_i, &sv_[0], &si_[0]);
-      const int jb = si_[0];
-      const T alpha = fmin(fmax(sv_[0], T(0)), T(1));
+      const bool hv = team_any<NT>(any_viol);
+      team_arg<NT>(true, bvv, bii, red_v, red_i);
+      const int jb = bii;
+      const T alpha = isnan(bvv) ? bvv : fmin(fmax(bvv, T(0)), T(1));
 
       // -- working point slack c = G @ lam_base and the most violated row
-      bv = -inf<T>();
-      bi = INT_MAX;
-      for (int i = tid; i < m; i += nt) {
-        const T ci = dot(a.GT + i, m, lb, m);
-        c[i] = ci;
+      ballots(m, mb, [&](int i) { return lb[i] != T(0); });
+      team_sync<NT>();
+      matvec_nz<T, NT>(c, GT, 1, m, lb, mb, nwm, m, tid);
+      bvv = -inf<T>();
+      bii = INT_MAX;
+      for (int i = tid; i < m; i += NT) {
+        const T ci = c[i];
         const bool cand = !act[i] && !immut[i];
         const T u = cand ? -(du[i] + ci) : -big;
         const T l = cand ? dl[i] + ci : -big;
         vup[i] = u;
         vlo[i] = l;
-        scan(false, u > l ? u : l, i, bv, bi);
+        scan(false, nan_max(u, l), i, bvv, bii);
       }
-      block_arg(false, bv, bi, red_v, red_i, &sv_[1], &si_[1]);
-      const int j_new = si_[1];
-      const bool conv = !pending && sv_[1] <= a.ptol;
+      team_arg<NT>(false, bvv, bii, red_v, red_i);
+      team_sync<NT>();
+      const int j_new = bii;
+      const bool conv = !pending && bvv <= a.ptol;
       const int j_sel = pending ? pend : j_new;
-      const bool side_j = pending ? s_pend_side != 0 : vup[j_new] >= vlo[j_new];
+      const bool side_j = pending ? pend_side != 0 : vup[j_new] >= vlo[j_new];
       const T viol_j = side_j ? -(du[j_sel] + c[j_sel]) : dl[j_sel] + c[j_sel];
       const bool drop = pending && viol_j <= a.ptol;
 
       // -- GI step for the candidate: direction inv @ v_j, Schur complement
-      const T* gs_j = a.GsT + static_cast<size_t>(j_sel) * m;
-      for (int k = tid; k < s; k += nt) {
+      const T* gs_j = GsT + static_cast<size_t>(j_sel) * m;
+      for (int k = tid; k < s; k += NT) {
         const int r = row_at(k);
         xw[k] = (r >= 0 && act[r] && r != j_sel) ? gs_j[r] : T(0);
       }
-      __syncthreads();
-      for (int k = tid; k < s; k += nt) {
-        yw[k] = dot(R + k * ld, 1, xw, s);
-        p1[k] = xw[k] * yw[k];
-      }
-      __syncthreads();
-      if (tid == 0) s_gamma = gs_j[j_sel] - serial_sum(p1, s);
-      __syncthreads();
-      const T gamma = s_gamma;
+      list_xw();
+      matvec_nz<T, NT>(yw, R, ld, 1, xw, mx, nws, s, tid);
+      team_sync<NT>();
+      const T gamma = gs_j[j_sel] - dot_nz(xw, yw, mx, nws);
       const T sgn = side_j ? T(1) : T(-1);
-      const T t_primal = gamma > a.gtol
-                             ? (viol_j > T(0) ? viol_j : T(0)) / (gamma > a.gtol ? gamma : a.gtol)
-                             : big;
-      bv = inf<T>();
-      bi = INT_MAX;
-      for (int i = tid; i < m; i += nt) {
+      const T t_primal = gamma > a.gtol ? clamp_min0(viol_j) / gamma : big;
+      bvv = inf<T>();
+      bii = INT_MAX;
+      for (int i = tid; i < m; i += NT) {
         const int k = index_of(i);
         const T dv = k >= 0 ? sgn * yw[k] : T(0);
         dvr[i] = dv;
         const bool valid = act[i] && !eq[i] && (side[i] ? dv > T(0) : dv < T(0));
         T t = big;
         if (valid) {
-          const T q = lb[i] / (dv == T(0) ? T(1) : dv);
-          t = q > T(0) ? q : T(0);
+          t = clamp_min0(lb[i] / (dv == T(0) ? T(1) : dv));
         }
-        scan(true, t, i, bv, bi);
+        scan(true, t, i, bvv, bii);
       }
-      block_arg(true, bv, bi, red_v, red_i, &sv_[2], &si_[2]);
-      const int ib = si_[2];
-      const T t_dual = sv_[2];
+      team_arg<NT>(true, bvv, bii, red_v, red_i);
+      const int ib = bii;
+      const T t_dual = bvv;
       const bool full_add = t_primal <= t_dual;
-      const T t_step = t_primal < t_dual ? t_primal : t_dual;
+      const T t_step = nan_min(t_primal, t_dual);
       const bool live = !hv && !conv && !drop;
       const bool no_step = t_step >= big;
       bool full = false;  // a full add with no free slot
-      if constexpr (kSlots) full = full_add && s_nocc >= s;
+      if constexpr (kSlots) full = full_add && nocc >= s;
       const bool infeas_now = live && no_step;
       const bool ovf_now = live && !no_step && full;
       const bool take = live && !no_step && !full;
 
       // -- new row state
       const T lb_j = lb[j_sel];
-      for (int i = tid; i < m; i += nt) {
+      for (int i = tid; i < m; i += NT) {
         T nl;
         uint8_t na, ns = side[i];
         if (hv) {
@@ -416,116 +684,257 @@ __device__ __forceinline__ void lane(const Args<T>& a) {
           if (is_rem) {
             sc = slot_of[ch];
           } else {
-            for (int k = 0; k < s; ++k)
-              if (slot_row[k] < 0) {
-                sc = k;
-                break;
-              }
+            for (int w = 0; w < nws && sc < 0; ++w)
+              if (mfree[w]) sc = (w << 5) + __ffs(mfree[w]) - 1;
           }
         } else {
           sc = ch;
         }
       }
-      __syncthreads();
-      if (tid == 0) {
-        s_pend = (take && !full_add) ? j_sel : ((take || drop) ? -1 : pend);
-        if (take) s_pend_side = side_j;
-        s_done = (!hv && conv) || infeas_now || ovf_now;
-        s_infeas = s_infeas || infeas_now;
-        s_ovf = s_ovf || ovf_now;
-        s_iters += 1;
-        if constexpr (kSlots) {
-          if (sc >= 0) {
+      pend = (take && !full_add) ? j_sel : ((take || drop) ? -1 : pend);
+      if (take) pend_side = side_j;
+      done = (!hv && conv) || infeas_now || ovf_now;
+      infeas = infeas || infeas_now;
+      ovf = ovf || ovf_now;
+      iters += 1;
+      team_sync<NT>();
+      if constexpr (kSlots) {
+        if (sc >= 0) {
+          if (tid == 0) {
             if (is_rem) {
               slot_row[sc] = -1;
               slot_of[ch] = -1;
-              s_nocc -= 1;
+              mfree[sc >> 5] |= 1u << (sc & 31);
             } else {
               slot_row[sc] = ch;
               slot_of[ch] = sc;
-              s_nocc += 1;
+              mfree[sc >> 5] &= ~(1u << (sc & 31));
             }
           }
+          nocc += is_rem ? -1 : 1;
+          team_sync<NT>();
         }
       }
 
       // -- rank-2 Woodbury update of the inverse at sc, the changed row's
-      //    Gram column gathered through the updated working set
+      //    Gram column gathered through the updated working set. On a full
+      //    add that column is the GI step's v_j (the working set the step
+      //    saw, the new row left out), so its list and inv @ v_j carry over.
       if (sc >= 0) {
-        const T* gs_c = a.GsT + static_cast<size_t>(ch) * m;
-        __syncthreads();
-        for (int k = tid; k < s; k += nt) {
-          xw[k] = (held(k) && k != sc) ? gs_c[row_at(k)] : T(0);
-          Re[k] = R[k * ld + sc];
+        const T* gs_c = GsT + static_cast<size_t>(ch) * m;
+        if (is_rem) {
+          for (int k = tid; k < s; k += NT) {
+            xw[k] = (held(k) && k != sc) ? gs_c[row_at(k)] : T(0);
+            Re[k] = R[k * ld + sc];
+          }
+          list_xw();
+          matvec_nz<T, NT>(yw, R, ld, 1, xw, mx, nws, s, tid);
+        } else {
+          for (int k = tid; k < s; k += NT) Re[k] = R[k * ld + sc];
         }
-        __syncthreads();
-        for (int k = tid; k < s; k += nt) {
-          yw[k] = dot(R + k * ld, 1, xw, s);
-          p1[k] = xw[k] * Re[k];
-          p2[k] = xw[k] * yw[k];
-        }
-        __syncthreads();
-        if (tid == 0) s_a21 = serial_sum(p1, s);
-        if (tid == (nt > 32 ? 32 : 0)) s_a22 = serial_sum(p2, s);
-        __syncthreads();
-        const T a11 = Re[sc], a12 = yw[sc], a21 = s_a21, a22 = s_a22, gjj = gs_c[ch];
+        ballots(s, msup, [&](int k) { return Re[k] != T(0) || yw[k] != T(0); });
+        team_sync<NT>();
+        T a21, a22;
+        dot2_nz(xw, Re, yw, mx, nws, a21, a22);
+        const T a11 = Re[sc], a12 = yw[sc], gjj = gs_c[ch];
         const T S00 = is_rem ? -a11 : a11;
         const T S01 = is_rem ? T(1) - a12 : T(1) + a12;
         const T S10 = is_rem ? T(1) - a21 : T(1) + a21;
         const T S11 = is_rem ? (T(1) - gjj) - a22 : (T(1) - gjj) + a22;
         T det = S00 * S11 - S01 * S10;
         det = fabs(det) > tiny ? det : tiny;
-        for (int k = tid; k < s; k += nt) {
+        int nonfinite = !(isfinite(S00) && isfinite(S01) && isfinite(S10) && isfinite(S11) &&
+                          isfinite(det));
+        for (int k = tid; k < s; k += NT) {
           const T t0 = (S11 * Re[k] - S10 * yw[k]) / det;
           const T t1 = (-S01 * Re[k] + S00 * yw[k]) / det;
-          T* Rk = R + k * ld;
-          for (int j = 0; j < s; ++j) {
-            const T u = t0 * Re[j] + t1 * yw[j];
-            Rk[j] = is_rem ? Rk[j] + u : Rk[j] - u;
+          t0s[k] = t0;
+          t1s[k] = t1;
+          if (Re[k] != T(0) || yw[k] != T(0))
+            nonfinite |= !(isfinite(Re[k]) && isfinite(yw[k]) && isfinite(t0) && isfinite(t1));
+        }
+        // rows and columns outside the support change by +-0 unless a
+        // factor is not finite: then the whole inverse takes the update
+        const bool whole = team_any<NT>(nonfinite);
+        int now_nonfinite = 0;
+        for (int k0 = tid; k0 < s; k0 += NT * kRows) {
+          bool on[kRows];
+          T t0[kRows], t1[kRows];
+#pragma unroll
+          for (int r = 0; r < kRows; ++r) {
+            const int k = k0 + r * NT;
+            on[r] = k < s && (whole || Re[k] != T(0) || yw[k] != T(0));
+            t0[r] = on[r] ? t0s[k] : T(0);
+            t1[r] = on[r] ? t1s[k] : T(0);
+          }
+          if (whole) {
+            for (int j = 0; j < s; ++j) {
+              const T rj = Re[j], yj = yw[j];
+#pragma unroll
+              for (int r = 0; r < kRows; ++r) {
+                if (on[r]) {
+                  T* Rkj = R + (k0 + r * NT) * ld + j;
+                  const T u = t0[r] * rj + t1[r] * yj;
+                  const T nv = is_rem ? *Rkj + u : *Rkj - u;
+                  *Rkj = nv;
+                  now_nonfinite |= !isfinite(nv);
+                }
+              }
+            }
+          } else {
+            for (int w = 0; w < nws; ++w) {
+              unsigned bits = msup[w];
+              while (bits) {
+                const int j = (w << 5) + __ffs(bits) - 1;
+                bits &= bits - 1;
+                const T rj = Re[j], yj = yw[j];
+#pragma unroll
+                for (int r = 0; r < kRows; ++r) {
+                  if (on[r]) {
+                    T* Rkj = R + (k0 + r * NT) * ld + j;
+                    const T u = t0[r] * rj + t1[r] * yj;
+                    const T nv = is_rem ? *Rkj + u : *Rkj - u;
+                    *Rkj = nv;
+                    now_nonfinite |= !isfinite(nv);
+                  }
+                }
+              }
+            }
           }
         }
+        const bool broke = team_any<NT>(now_nonfinite);
+        dense = dense || broke;
       }
-      __syncthreads();
+      team_sync<NT>();
     }
   }
 
-  for (int i = tid; i < m; i += nt) {
+  for (int i = tid; i < m; i += NT) {
     a.lam[ob + i] = lam[i];
     a.act[ob + i] = act[i];
     a.side[ob + i] = side[i];
   }
   if constexpr (kSlots)
-    for (int k = tid; k < s; k += nt) a.slots[static_cast<size_t>(b) * s + k] = slot_row[k];
-  if (a.inv_in_smem)
-    for (int e = tid; e < s * s; e += nt) a.inv[b * ss + e] = R[(e / s) * ld + e % s];
+    for (int k = tid; k < s; k += NT) a.slots[static_cast<size_t>(b) * s + k] = slot_row[k];
+  if (a.inv_in_smem) copy_inv<T, true>(R, ld, a.inv + b * ss, s, tid, NT);
   if (tid == 0) {
-    a.iters[b] = s_iters;
-    a.done[b] = s_done;
-    a.infeas[b] = s_infeas;
-    if constexpr (kSlots) a.ovf[b] = s_ovf;
+    a.iters[b] = iters;
+    a.done[b] = done;
+    a.infeas[b] = infeas;
+    if constexpr (kSlots) a.ovf[b] = ovf;
+  }
+  team_sync<NT>();
+}
+
+// The most threads of a block whose teams have NT threads each: the
+// __launch_bounds__ of the kernels that run run_lanes().
+__host__ __device__ constexpr int block_threads(int NT) {
+  return NT == 32 ? 32 * kMaxLanesPerBlock : NT;
+}
+
+// The body of a persistent block (each kernel's __global__ entry calls it):
+// G, and G_solve after it, staged once into shared memory (16-byte
+// cp.async) as launch() chose, then each team takes lanes from the work
+// counter until none is left.
+template <typename T, bool kSlots, int NT>
+__device__ __forceinline__ void run_lanes(Args<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int next_lane;  // the wide team's lane, handed out by thread 0
+  const T* GT = a.GT;
+  const T* GsT = a.GsT;
+  unsigned char* base = smem_raw;
+  if (a.g_staged) {
+    T* g = reinterpret_cast<T*>(smem_raw);
+    const size_t mm = static_cast<size_t>(a.m) * a.m;
+    const int nmat = a.g_staged;
+    const bool vec = aligned16(a.GT) && aligned16(a.GsT) && (mm * sizeof(T)) % 16 == 0;
+    if (vec) {
+      const size_t nv = mm * sizeof(T) / 16;
+      for (size_t v = threadIdx.x; v < nmat * nv; v += blockDim.x) {
+        const char* src = v < nv ? reinterpret_cast<const char*>(a.GT) + 16 * v
+                                 : reinterpret_cast<const char*>(a.GsT) + 16 * (v - nv);
+        const unsigned dst =
+            static_cast<unsigned>(__cvta_generic_to_shared(reinterpret_cast<char*>(g) + 16 * v));
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    } else {
+      for (size_t e = threadIdx.x; e < nmat * mm; e += blockDim.x)
+        g[e] = e < mm ? a.GT[e] : a.GsT[e - mm];
+    }
+    __syncthreads();
+    GT = g;
+    if (nmat == 2) GsT = g + mm;
+    base += up16(nmat * mm * sizeof(T));
+  }
+  if constexpr (NT == 32) base += static_cast<size_t>(threadIdx.x >> 5) * a.lane_bytes;
+  for (;;) {
+    int b = 0;
+    if constexpr (NT == 32) {
+      if ((threadIdx.x & 31) == 0) b = atomicAdd(a.work, 1);
+      b = __shfl_sync(kFull, b, 0);
+    } else {
+      __syncthreads();
+      if (threadIdx.x == 0) next_lane = atomicAdd(a.work, 1);
+      __syncthreads();
+      b = next_lane;
+    }
+    if (b >= a.B) break;
+    lane<T, kSlots, NT>(a, b, GT, GsT, base);
   }
 }
 
-// Launch ``kernel`` (one block per lane) with the inverse in shared memory
-// when the block's arrays fit kSmemLimit together with it (rows padded to
-// an odd stride, so the row-per-thread matvecs are free of bank
-// conflicts); otherwise the kernel updates it in place in the output.
-template <typename T, bool kSlots>
-cudaError_t launch(void (*kernel)(Args<T>), Args<T> a, int B, cudaStream_t stream) {
-  const size_t vec_bytes = sizeof(T) * (9 * a.m + 5 * a.s) +
-                           (kSlots ? sizeof(int) * (a.s + a.m) : 0) + 4 * a.m + 16;
-  const size_t inv_bytes = sizeof(T) * a.s * (a.s + 1);
-  a.inv_in_smem = vec_bytes + inv_bytes <= kSmemLimit;
-  const size_t smem = vec_bytes + (a.inv_in_smem ? inv_bytes : 0);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
+template <typename T, bool kSlots, int NT>
+cudaError_t launch_team(void (*kernel)(Args<T>), Args<T> a, cudaStream_t stream) {
+  const size_t per_lane = lane_bytes<T, kSlots>(a.m, a.s, a.inv_in_smem);
+  const size_t mat_bytes = sizeof(T) * static_cast<size_t>(a.m) * a.m;
+  int dev = 0, nsm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // a small batch spreads over every SM, one lane per warp
+  int want = 1;
+  if (NT == 32) want = std::min(kMaxLanesPerBlock, std::max(1, (a.B + nsm - 1) / nsm));
+  // stage G and G_solve where a lane fits beside them, else G alone, else
+  // neither: the GI step gathers from both every iteration
+  int lanes = 0;
+  for (int nmat = 2; nmat >= 0 && lanes < 1; --nmat) {
+    const size_t g_bytes = up16(nmat * mat_bytes);
+    const int fit = g_bytes < kBlockSmem ? static_cast<int>((kBlockSmem - g_bytes) / per_lane) : 0;
+    lanes = std::min(fit, want);
+    a.g_staged = nmat;
   }
-  const int threads = a.m >= kMaxThreads ? kMaxThreads : ((a.m + 31) / 32) * 32;
-  kernel<<<B, threads, smem, stream>>>(a);
+  if (lanes < 1) return cudaErrorInvalidValue;
+  a.lane_bytes = static_cast<int>(per_lane);
+  const size_t smem = up16(a.g_staged * mat_bytes) + lanes * per_lane;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  const int threads = NT == 32 ? 32 * lanes : NT;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int blocks = std::min((a.B + lanes - 1) / lanes, per_sm * nsm);
+  e = cudaMemsetAsync(a.work, 0, sizeof(int), stream);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// Launch the lane loop: a warp per lane (``warp``, the kernel's
+// instantiation at NT = 32) where the inverse fits in shared memory beside
+// the lane's arrays and s <= 64, else a 128-thread team per lane (``wide``,
+// at NT = kWide; with the inverse updated in place in the output above the
+// budget).
+template <typename T, bool kSlots>
+cudaError_t launch(void (*warp)(Args<T>), void (*wide)(Args<T>), Args<T> a,
+                   cudaStream_t stream) {
+  a.inv_in_smem = lane_bytes<T, kSlots>(a.m, a.s, true) <= kInvLimit;
+  if (a.inv_in_smem && a.s <= 64) return launch_team<T, kSlots, 32>(warp, a, stream);
+  return launch_team<T, kSlots, kWide>(wide, a, stream);
 }
 
 }  // namespace gi

@@ -1,5 +1,5 @@
-// K3: the Goldfarb-Idnani inverse-update bulk phase, one thread block per
-// lane, whole early-exit loop in the kernel.
+// K3: the Goldfarb-Idnani inverse-update bulk phase, one warp per lane,
+// whole early-exit loop in the kernel.
 //
 // Replaces linearmpc_tpu/ops/pallas_iu.py::_iu_iteration_kernel (looped
 // there by phase1_iu_pallas / phase1_iu_pallas_while, one gridless call
@@ -7,14 +7,17 @@
 // (m x m) and runs the iteration of dual_active_set.py::_active_set_loop_iu
 // (gi::lane in gi_common.cuh with the inverse over all m rows).
 //
-// What bounds it: latency. A lane's iteration is a chain of m-long serial
-// sums and block reductions (~O(m^2) flops, most of them skipped zeros);
-// R is 9.2 KB per lane in f32 at m = 48 (18.4 KB in f64). R and every
-// per-row vector of the lane live in shared memory, G and G_solve are read
-// transposed through L1/L2 so a column read is coalesced, and the block
-// exits as soon as its lane is done. No TPU workaround is carried over: no
-// one-hot movement matrices, no ones-column expansions, no
-// triangular-matmul first-hit masks.
+// What bounds it: the latency of one lane's iteration, a chain of short
+// sums over the working set (a few thousand multiply-adds per iteration
+// against ~9.2 KB of R per lane in f32 at m = 48). The design cuts that
+// chain: a warp runs a lane, so its barriers are __syncwarp and its
+// arg-reductions shuffles; every product walks the ascending list of the
+// nonzero entries only; G and G_solve sit in shared memory once per block
+// (18.4 KB in f32 at m = 48); R and every per-row vector of the lane live
+// in shared memory, 16 lanes to a block, and a lane that finishes takes the
+// next one. No TPU workaround is carried over: no one-hot movement
+// matrices, no ones-column expansions, no triangular-matmul first-hit
+// masks.
 //
 // The float instantiation is the IU tier's bulk phase and the warm
 // rollout step (big = 3e38, gamma_tol = 3.5e-4); the double one is the f64
@@ -25,21 +28,22 @@
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(gi::kMaxThreads) iu_kernel(gi::Args<T> a) {
-  gi::lane<T, false>(a);
+template <typename T, int NT>
+__global__ void __launch_bounds__(gi::block_threads(NT), 1) iu_kernel(gi::Args<T> a) {
+  gi::run_lanes<T, false, NT>(a);
 }
 
 template <typename T>
 cudaError_t run(int m, int B, const void* GT, const void* GsT, const void* du,
                 const void* dl, const void* eq, int eq_stride, const void* immut,
                 const void* lam0, const void* act0, const void* side0, const void* R0,
-                void* lam, void* act, void* side, void* iters, void* done, void* infeas,
-                void* R, int max_iter, double ptol, double stol, double gtol, double big,
-                int retry, cudaStream_t stream) {
+                long long R0_stride, void* lam, void* act, void* side, void* iters, void* done,
+                void* infeas, void* R, void* work, int max_iter, double ptol, double stol,
+                double gtol, double big, int retry, cudaStream_t stream) {
   gi::Args<T> a{};
   a.m = m;
   a.s = m;
+  a.B = B;
   a.GT = static_cast<const T*>(GT);
   a.GsT = static_cast<const T*>(GsT);
   a.du_t = static_cast<const T*>(du);
@@ -51,6 +55,7 @@ cudaError_t run(int m, int B, const void* GT, const void* GsT, const void* du,
   a.act0 = static_cast<const uint8_t*>(act0);
   a.side0 = static_cast<const uint8_t*>(side0);
   a.inv0 = static_cast<const T*>(R0);
+  a.inv0_stride = R0_stride;
   a.lam = static_cast<T*>(lam);
   a.act = static_cast<uint8_t*>(act);
   a.side = static_cast<uint8_t*>(side);
@@ -58,37 +63,40 @@ cudaError_t run(int m, int B, const void* GT, const void* GsT, const void* du,
   a.done = static_cast<uint8_t*>(done);
   a.infeas = static_cast<uint8_t*>(infeas);
   a.inv = static_cast<T*>(R);
+  a.work = static_cast<int*>(work);
   a.max_iter = max_iter;
   a.ptol = static_cast<T>(ptol);
   a.stol = static_cast<T>(stol);
   a.gtol = static_cast<T>(gtol);
   a.big = static_cast<T>(big);
   a.retry = retry;
-  return gi::launch<T, false>(iu_kernel<T>, a, B, stream);
+  return gi::launch<T, false>(iu_kernel<T, 32>, iu_kernel<T, gi::kWide>, a, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = float64. Arrays batch-major: du/dl/lam0 (B, m),
-// R0/R (B, m, m) row-major, bool arrays one byte per entry; GT and GsT are
-// G and G_solve transposed (m, m); eq is (m,) with eq_stride 0 or (B, m)
-// with eq_stride m. Returns the cudaError_t of the launch.
+// R (B, m, m) row-major, R0 the same with batch stride R0_stride elements
+// (0: one (m, m) entry inverse for every lane), bool arrays one byte per
+// entry; GT and GsT are G and G_solve transposed (m, m); eq is (m,) with
+// eq_stride 0 or (B, m) with eq_stride m; work is one int32 of scratch.
+// Returns the cudaError_t of the launch.
 extern "C" int lmpc_iu(int dtype, int m, int B, const void* GT, const void* GsT,
                        const void* du, const void* dl, const void* eq, int eq_stride,
                        const void* immut, const void* lam0, const void* act0,
-                       const void* side0, const void* R0, void* lam, void* act, void* side,
-                       void* iters, void* done, void* infeas, void* R, int max_iter,
-                       double ptol, double stol, double gtol, double big, int retry,
-                       void* stream) {
+                       const void* side0, const void* R0, long long R0_stride, void* lam,
+                       void* act, void* side, void* iters, void* done, void* infeas, void* R,
+                       void* work, int max_iter, double ptol, double stol, double gtol,
+                       double big, int retry, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m < 1 || B < 1) return cudaErrorInvalidValue;
   if (dtype == 0)
-    return run<float>(m, B, GT, GsT, du, dl, eq, eq_stride, immut, lam0, act0, side0, R0, lam,
-                      act, side, iters, done, infeas, R, max_iter, ptol, stol, gtol, big,
-                      retry, s);
+    return run<float>(m, B, GT, GsT, du, dl, eq, eq_stride, immut, lam0, act0, side0, R0,
+                      R0_stride, lam, act, side, iters, done, infeas, R, work, max_iter, ptol,
+                      stol, gtol, big, retry, s);
   if (dtype == 1)
     return run<double>(m, B, GT, GsT, du, dl, eq, eq_stride, immut, lam0, act0, side0, R0,
-                       lam, act, side, iters, done, infeas, R, max_iter, ptol, stol, gtol, big,
-                       retry, s);
+                       R0_stride, lam, act, side, iters, done, infeas, R, work, max_iter, ptol,
+                       stol, gtol, big, retry, s);
   return cudaErrorInvalidValue;
 }

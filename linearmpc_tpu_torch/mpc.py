@@ -4,13 +4,16 @@ Port of ``linearmpc_tpu/mpc.py``, the twin of the reference's ``MPC``
 struct and mutator API (src/types.jl:108-182, src/setup.jl). Mutators
 invalidate the compiled problem (``mpqp_issetup``); ``setup(device=,
 dtype=)`` condenses the spec into an mpQP and lowers it to solver arrays on
-that device.
+that device: the card ("cuda") unless the caller names another. Without
+CUDA, a setup that names no device raises and asks for ``device="cpu"``.
+An implicit setup (the first solve after a mutator, ``build_rollout``)
+reuses the device and dtype of the last explicit ``setup``.
 
 Routing of the online solves: ``solve``/``compute_control`` are a batch of
 one through ``SolverEngine.solve_batch``. On CUDA (default dtype float32)
 that is the small-m tier, so a single solve also launches the K1 bulk and
-K2 polish kernels, and reports status 1 or -1 only. On the CPU the default
-is the exact float64 path, which also reports -3 for an infeasible point.
+K2 polish kernels, and reports status 1 or -1 only. With ``device="cpu"``
+the default is the exact float64 path, which also reports -3 for an infeasible point.
 
 Index conventions: control/binary indices are 0-based; constraint time
 steps ``ks`` keep the reference's 1-based convention (k=1 is the initial
@@ -33,7 +36,7 @@ from .observer import (
     default_offset_free_labels,
     strip_offset_free_model,
 )
-from .ops.engine import SolverEngine
+from .ops.engine import SolverEngine, resolve_device
 from .ops.ldp import qp2ldp
 from .types import Constraint, MPCSettings, MPCWeights, MPQP, ParameterRange
 from .utils.formatting import form_parameter
@@ -66,6 +69,7 @@ class MPC:
         self.dx0 = np.zeros(model.nx)
         self.objectives: list[tuple[MPCWeights, list[int]]] = []
         self.engine: SolverEngine | None = None
+        self._setup_kw: dict = {}  # device and dtype of the last explicit setup
 
     # -- alternative constructors ------------------------------------------
     @staticmethod
@@ -82,10 +86,14 @@ class MPC:
     def invalidate(self):
         self.mpqp_issetup = False
 
-    def setup(self, *, device="cpu", dtype=None) -> "MPC":
+    def setup(self, *, device=None, dtype=None) -> "MPC":
         """Condense and lower the problem onto ``device``; the analog of the
         reference's ``setup!`` + DAQP workspace creation (src/setup.jl:7-29).
-        ``dtype`` defaults to float32 on CUDA and float64 on the CPU."""
+        ``device`` defaults to "cuda" (without CUDA this raises: pass
+        ``device="cpu"``); ``dtype`` to float32 on CUDA and float64 on the
+        CPU."""
+        resolve_device(device)
+        self._setup_kw = dict(device=device, dtype=dtype)
         self.mpqp_issetup = False
         self.mpQP = _condense.mpc2mpqp(self)
         lex = (self.settings.hierarchy == "lexicographic"
@@ -105,6 +113,14 @@ class MPC:
             lexicographic=lex,
         )
         self.mpqp_issetup = True
+        return self
+
+    def ensure_setup(self) -> "MPC":
+        """Set the problem up again if a mutator invalidated it, on the
+        device and dtype of the last explicit ``setup`` (the card if there
+        was none)."""
+        if not self.mpqp_issetup:
+            self.setup(**self._setup_kw)
         return self
 
     # -- bounds / constraints ----------------------------------------------
@@ -405,8 +421,7 @@ class MPC:
     def solve(self, theta):
         """Solve the QP at parameter theta (reference src/utils.jl:268-283).
         Returns (U, fval, exitflag, info)."""
-        if not self.mpqp_issetup:
-            self.setup()
+        self.ensure_setup()
         if not self.mpqp_issetup:
             raise RuntimeError("Could not setup optimization problem")
         return self.engine.solve(theta)

@@ -29,7 +29,7 @@ import torch
 
 from . import cuda_lib
 from .compact_iu import init_compact, iterate_ciu
-from .iu import check_inputs, sentinels
+from .iu import batch_inverse, check_inputs, entry_inverse, sentinels
 
 # kernel launches (the count a run reads to show the path went through K4)
 LAUNCHES = 0
@@ -109,6 +109,7 @@ def phase1_ciu_plain(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw
                      retry_infeas: bool = False):
     """K4's plain version on any device; returns (lam, act, side, iters,
     done, infeas, ovf, slots, Rw) batch-major, as ``phase1_ciu``."""
+    Rw0 = batch_inverse(Rw0, du_t.shape[0])
     st = iterate_ciu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw0,
                      max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol,
                      retry_infeas=retry_infeas)
@@ -117,8 +118,8 @@ def phase1_ciu_plain(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw
 
 
 _ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-             + [ctypes.c_void_p] * 15 + [ctypes.c_int] + [ctypes.c_double] * 4
-             + [ctypes.c_int] + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_void_p] * 10
+             + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_int] + [ctypes.c_void_p])
 
 
 def _phase1_ciu_cuda(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw0, *,
@@ -137,18 +138,22 @@ def _phase1_ciu_cuda(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw
     if not 1 <= s <= m:
         raise ValueError(f"phase1_ciu kernel takes 1 <= s <= m, got s={s}, m={m}")
     big, gtol = sentinels(dtype)
-    u8 = lambda t: t.to(device=dev, dtype=torch.uint8).contiguous()
+    # masks go in and come out as torch.bool, one byte of 0 or 1 each, as the
+    # kernel reads and writes them
+    mask = lambda t: t.to(device=dev, dtype=torch.bool).contiguous()
     ins = [G.T.contiguous(), Gs.T.contiguous(), du_t.contiguous(), dl_t.contiguous(),
-           u8(eq)]
-    ins2 = [u8(immut), lam0.contiguous(), u8(act0), u8(side0),
-            slots0.to(device=dev, dtype=torch.int32).contiguous(), Rw0.contiguous()]
+           mask(eq)]
+    Rw0, Rw0_stride = entry_inverse(Rw0)
+    ins2 = [mask(immut), lam0.contiguous(), mask(act0), mask(side0),
+            slots0.to(device=dev, dtype=torch.int32).contiguous(), Rw0]
     lam = torch.empty((B, m), dtype=dtype, device=dev)
-    act = torch.empty((B, m), dtype=torch.uint8, device=dev)
-    side = torch.empty((B, m), dtype=torch.uint8, device=dev)
+    act = torch.empty((B, m), dtype=torch.bool, device=dev)
+    side = torch.empty((B, m), dtype=torch.bool, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
-    flags = torch.empty((3, B), dtype=torch.uint8, device=dev)  # done, infeas, ovf
+    flags = torch.empty((3, B), dtype=torch.bool, device=dev)  # done, infeas, ovf
     slots = torch.empty((B, s), dtype=torch.int32, device=dev)
     Rw = torch.empty((B, s, s), dtype=dtype, device=dev)
+    work = torch.empty(1, dtype=torch.int32, device=dev)
     if B > 0:
         fn = cuda_lib.load("ciu").lmpc_ciu
         fn.argtypes = _ARGTYPES
@@ -157,15 +162,14 @@ def _phase1_ciu_cuda(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(0 if dtype == torch.float32 else 1, m, s, B,
                      *(t.data_ptr() for t in ins), 0 if eq.dim() == 1 else m,
-                     *(t.data_ptr() for t in ins2),
+                     *(t.data_ptr() for t in ins2), Rw0_stride,
                      *(t.data_ptr() for t in (lam, act, side, iters, flags[0], flags[1],
-                                              flags[2], slots, Rw)),
+                                              flags[2], slots, Rw, work)),
                      int(max_iter), float(primal_tol), float(sign_tol), gtol, big,
                      int(bool(retry_infeas)), stream)
         cuda_lib.check(err, "phase1_ciu kernel launch")
         LAUNCHES += 1
-    return (lam, act.bool(), side.bool(), iters, flags[0].bool(), flags[1].bool(),
-            flags[2].bool(), slots.to(torch.int64), Rw)
+    return lam, act, side, iters, flags[0], flags[1], flags[2], slots.to(torch.int64), Rw
 
 
 def phase1_ciu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw0, *,
@@ -175,11 +179,14 @@ def phase1_ciu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw0, *,
     infeas, ovf, slots, Rw) batch-major.
 
     ``G``/``Gs`` (m, m), ``du_t``/``dl_t``/``lam0`` (B, m) and ``Rw0`` (B,
-    s, s) in one float dtype; ``act0``/``side0`` (B, m) bool; ``slots0``
-    (B, s) int; ``eq`` (m,) or (B, m) and ``immut`` (m,) bool on any
-    device. On CUDA the kernel runs; on the CPU the plain version does."""
+    s, s), or one (s, s) entry inverse for every lane, in one float dtype;
+    ``act0``/``side0`` (B, m) bool; ``slots0`` (B, s) int; ``eq`` (m,) or
+    (B, m) and ``immut`` (m,) bool on any device. On CUDA the kernel runs
+    (a shared entry inverse goes in once, with batch stride 0); on the CPU
+    the plain version does."""
     kw = dict(max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol,
               retry_infeas=retry_infeas)
+    Rw0 = batch_inverse(Rw0, du_t.shape[0])
     args = (G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, slots0, Rw0)
     if du_t.device.type == "cuda":
         return _phase1_ciu_cuda(*args, **kw)

@@ -74,6 +74,17 @@ def default_dtype(device) -> torch.dtype:
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` where the caller names one, else the card. Without CUDA
+    and no device named this raises: nothing falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError('CUDA is not available: the port runs on the card by default; '
+                           'pass device="cpu" to run on the CPU')
+    return torch.device("cuda")
+
+
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported to CUDA yet (ROADMAP.md, modules to port, {item})")
@@ -118,7 +129,7 @@ class SolverEngine:
         self,
         ldp: LDPData,
         *,
-        device="cpu",
+        device=None,
         dtype=None,
         iter_limit: int = 1000,
         primal_tol: float = 1e-6,
@@ -128,7 +139,7 @@ class SolverEngine:
         lexicographic: bool = False,
     ):
         self.ldp = ldp
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = default_dtype(self.device) if dtype is None else dtype
         if self.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {self.dtype}")
@@ -336,11 +347,12 @@ class SolverEngine:
                             retry_infeas=retry)
 
     def iu_R0_init(self, B: int):
-        """The carried inverse of a cold rollout start (engine.py:413-418)."""
+        """The carried inverse of a cold start (engine.py:413-418): one (m, m)
+        matrix viewed by all B lanes, which K3 reads once (batch stride 0)."""
         m = self.ldp.m
         if not self._has_eq:
             return torch.eye(m, dtype=torch.float32, device=self.device).expand(B, m, m)
-        return iu.init_R_batch(self.arrays.G_solve, self.arrays.is_eq.expand(B, m))
+        return iu.init_R_batch(self.arrays.G_solve, self.arrays.is_eq[None]).expand(B, m, m)
 
     def _iu_batch(self, thetas, warm=None) -> Solution:
         arr, hi = self.arrays, self.arrays_hi
@@ -381,7 +393,7 @@ class SolverEngine:
             self._G64, self._Gs64, du_h[idx], dl_h[idx], self._eq, self._immut,
             torch.zeros((n, m), dtype=torch.float64, device=self.device), act_c,
             torch.ones((n, m), dtype=torch.bool, device=self.device),
-            iu.init_R_batch(hi.G_solve, act_c), max_iter=self.bulk_cap + 24,
+            iu.init_R_batch(hi.G_solve, hi.is_eq[None])[0], max_iter=self.bulk_cap + 24,
             primal_tol=self._fix_ptol, sign_tol=1e-11)
         fix = self._fix_solution(th64, idx, lam_f, act_f, side_f, iters[idx] + it_f,
                                  self._status(inf_f, done_f))
@@ -448,24 +460,25 @@ class SolverEngine:
         hi = self.arrays_hi
         n, m = du_h.shape
         act_c = hi.is_eq.expand(n, m)
-        Rw0, sl0, _ = ciu.init_compact_batch(hi.G_solve, act_c, s)
+        Rw0, sl0, _ = ciu.init_compact_batch(hi.G_solve, hi.is_eq[None], s)
         return ciu.phase1_ciu(
             self._G64, self._Gs64, du_h, dl_h, self._eq, self._immut,
             torch.zeros((n, m), dtype=torch.float64, device=self.device), act_c,
-            torch.ones((n, m), dtype=torch.bool, device=self.device), sl0, Rw0,
+            torch.ones((n, m), dtype=torch.bool, device=self.device), sl0.expand(n, s), Rw0[0],
             max_iter=cap, primal_tol=self._fix_ptol, sign_tol=1e-11)
 
     def _ciu_cold_carry(self, B):
-        m, s = self.ldp.m, self.ciu_s_max
+        """The slot carry of a cold batch: one slot map and one (s, s) Rw for
+        the equality rows, viewed by all B lanes (K4 reads Rw once)."""
+        s = self.ciu_s_max
         if self._has_eq:
-            Rw0, sl0, _ = ciu.init_compact_batch(self.arrays.G_solve,
-                                                 self.arrays.is_eq.expand(B, m), s)
-            return sl0, Rw0
+            Rw0, sl0, _ = ciu.init_compact_batch(self.arrays.G_solve, self.arrays.is_eq[None], s)
+            return sl0.expand(B, s), Rw0.expand(B, s, s)
         return self.ciu_carry_init(B)
 
     def ciu_carry_init(self, B: int):
         """The slot carry of a cold rollout start: every slot free, Rw = I
-        (engine.py:1056-1059)."""
+        viewed by all B lanes (engine.py:1056-1059)."""
         s = self.ciu_s_max
         return (torch.full((B, s), -1, dtype=torch.int64, device=self.device),
                 torch.eye(s, dtype=torch.float32, device=self.device).expand(B, s, s))

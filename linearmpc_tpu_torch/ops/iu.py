@@ -341,6 +341,7 @@ def phase1_iu_plain(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
                     retry_infeas: bool = False):
     """K3's plain version on any device; returns (lam, act, side, iters,
     done, infeas, R) batch-major, as ``phase1_iu``."""
+    R0 = batch_inverse(R0, du_t.shape[0])
     st = iterate_iu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0,
                     max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol,
                     retry_infeas=retry_infeas)
@@ -348,8 +349,26 @@ def phase1_iu_plain(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
 
 
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-             + [ctypes.c_void_p] * 12 + [ctypes.c_int] + [ctypes.c_double] * 4
-             + [ctypes.c_int] + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
+             + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_int] + [ctypes.c_void_p])
+
+
+def entry_inverse(inv0):
+    """A GI kernel's entry inverse and its batch stride in elements: one
+    (n, n) matrix, or a (B, n, n) batch whose lanes all view one matrix
+    (``expand``), goes in once with stride 0; any other batch contiguous."""
+    n = inv0.shape[-1]
+    if inv0.dim() == 2:
+        return inv0.contiguous(), 0
+    if inv0.stride(0) == 0 and inv0[0].is_contiguous():
+        return inv0[0], 0
+    return inv0.contiguous(), n * n
+
+
+def batch_inverse(inv0, B: int):
+    """The entry inverse as a (B, n, n) tensor (a view for one matrix)."""
+    n = inv0.shape[-1]
+    return inv0.expand(B, n, n) if inv0.dim() == 2 else inv0
 
 
 def check_inputs(what, dtype, dev, B, m, floats, masks):
@@ -377,17 +396,21 @@ def _phase1_iu_cuda(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
                  dict(act0=(act0, (B, m)), side0=(side0, (B, m)), immut=(immut, (m,)),
                       eq=(eq, (m,) if eq.dim() == 1 else (B, m))))
     big, gtol = sentinels(dtype)
-    u8 = lambda t: t.to(device=dev, dtype=torch.uint8).contiguous()
+    # masks go in and come out as torch.bool, one byte of 0 or 1 each, as the
+    # kernel reads and writes them
+    mask = lambda t: t.to(device=dev, dtype=torch.bool).contiguous()
+    R0, R0_stride = entry_inverse(R0)
     ins = [G.T.contiguous(), Gs.T.contiguous(), du_t.contiguous(), dl_t.contiguous(),
-           u8(eq)]
-    ins2 = [u8(immut), lam0.contiguous(), u8(act0), u8(side0), R0.contiguous()]
+           mask(eq)]
+    ins2 = [mask(immut), lam0.contiguous(), mask(act0), mask(side0), R0]
     lam = torch.empty((B, m), dtype=dtype, device=dev)
-    act = torch.empty((B, m), dtype=torch.uint8, device=dev)
-    side = torch.empty((B, m), dtype=torch.uint8, device=dev)
+    act = torch.empty((B, m), dtype=torch.bool, device=dev)
+    side = torch.empty((B, m), dtype=torch.bool, device=dev)
     iters = torch.empty(B, dtype=torch.int32, device=dev)
-    done = torch.empty(B, dtype=torch.uint8, device=dev)
-    infeas = torch.empty(B, dtype=torch.uint8, device=dev)
+    done = torch.empty(B, dtype=torch.bool, device=dev)
+    infeas = torch.empty(B, dtype=torch.bool, device=dev)
     R = torch.empty((B, m, m), dtype=dtype, device=dev)
+    work = torch.empty(1, dtype=torch.int32, device=dev)
     if B > 0:
         fn = cuda_lib.load("iu").lmpc_iu
         fn.argtypes = _ARGTYPES
@@ -396,13 +419,13 @@ def _phase1_iu_cuda(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = fn(0 if dtype == torch.float32 else 1, m, B,
                      *(t.data_ptr() for t in ins), 0 if eq.dim() == 1 else m,
-                     *(t.data_ptr() for t in ins2),
-                     *(t.data_ptr() for t in (lam, act, side, iters, done, infeas, R)),
+                     *(t.data_ptr() for t in ins2), R0_stride,
+                     *(t.data_ptr() for t in (lam, act, side, iters, done, infeas, R, work)),
                      int(max_iter), float(primal_tol), float(sign_tol), gtol, big,
                      int(bool(retry_infeas)), stream)
         cuda_lib.check(err, "phase1_iu kernel launch")
         LAUNCHES += 1
-    return (lam, act.bool(), side.bool(), iters, done.bool(), infeas.bool(), R)
+    return lam, act, side, iters, done, infeas, R
 
 
 def phase1_iu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
@@ -412,11 +435,14 @@ def phase1_iu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
     R) batch-major, as ``phase1_iu_pallas_while``.
 
     ``G``/``Gs`` (m, m), ``du_t``/``dl_t``/``lam0`` (B, m) and ``R0`` (B,
-    m, m) in one float dtype; ``act0``/``side0`` (B, m) bool; ``eq`` (m,)
-    or (B, m) bool and ``immut`` (m,) bool on any device. On CUDA the
-    kernel runs; on the CPU the plain version does."""
+    m, m), or one (m, m) entry inverse for every lane, in one float dtype;
+    ``act0``/``side0`` (B, m) bool; ``eq`` (m,) or (B, m) bool and
+    ``immut`` (m,) bool on any device. On CUDA the kernel runs (a shared
+    entry inverse goes in once, with batch stride 0); on the CPU the plain
+    version does."""
     kw = dict(max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol,
               retry_infeas=retry_infeas)
+    R0 = batch_inverse(R0, du_t.shape[0])
     args = (G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0)
     if du_t.device.type == "cuda":
         return _phase1_iu_cuda(*args, **kw)

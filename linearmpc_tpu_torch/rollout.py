@@ -58,9 +58,7 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
     ``plant``: optional (F, G, f_offset)-triple overriding the simulated
     plant (defaults to the controller model, like ``scenario.dynamics``).
     """
-    if not mpc.mpqp_issetup:
-        mpc.setup()
-
+    mpc.ensure_setup()
     engine = mpc.engine
     dev, dtype = engine.device, engine.dtype
     model = mpc.model

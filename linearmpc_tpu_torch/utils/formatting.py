@@ -52,7 +52,8 @@ def condense_reference(mpc, r):
     """(reference src/utils.jl:140-147)"""
     if mpc.settings.reference_condensation:
         if mpc.traj2setpoint.size == 0:
-            mpc.setup()
+            mpc.invalidate()
+            mpc.ensure_setup()
         return mpc.traj2setpoint @ r
     return r
 

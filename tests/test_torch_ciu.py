@@ -140,3 +140,23 @@ def test_slot_capacities_match_jax_engine(k_hi, monkeypatch):
 @pytest.mark.parametrize("m,s", [(48, 16), (128, 16), (256, 24), (448, 24), (640, 24)])
 def test_ciu_max_chunk_lanes_matches_jax(m, s):
     assert ciu.ciu_max_chunk_lanes(m, s) == P.ciu_max_chunk_lanes(m, s)
+
+
+def test_phase1_ciu_takes_one_entry_inverse():
+    """phase1_ciu and its plain version take one (s, s) entry inverse for
+    every lane and give what the expanded batch gives."""
+    e = _problem()
+    m, s = e.ldp.m, 16
+    arr = e.arrays
+    th = jnp.asarray(_thetas(8.0, 7), jnp.float32)
+    du = torch.tensor(np.asarray(arr.du + th @ arr.Dth.T))
+    dl = torch.tensor(np.asarray(arr.dl + th @ arr.Dth.T))
+    G, Gs = iu.gram(e.ldp, torch.float32, "cpu")
+    args = (G, Gs, du, dl, torch.tensor(np.asarray(arr.is_eq)),
+            torch.tensor(np.asarray(arr.is_immutable)), torch.zeros(B, m),
+            torch.zeros(B, m, dtype=torch.bool), torch.ones(B, m, dtype=torch.bool),
+            torch.full((B, s), -1))
+    kw = dict(max_iter=60, primal_tol=e.primal_tol, sign_tol=e.sign_tol)
+    one = ciu.phase1_ciu(*args, torch.eye(s), **kw)
+    for a, b in zip(one, ciu.phase1_ciu_plain(*args, torch.eye(s).expand(B, s, s), **kw)):
+        assert torch.equal(a, b)

@@ -66,8 +66,8 @@ def test_ldp_from_numpy_round_trip():
                               np.asarray(getattr(ldp_j, f.name))), f.name
     rng = np.random.default_rng(5)
     thetas = np.hstack([rng.uniform(-20, 20, (32, 6)), rng.uniform(-2, 2, (32, 1))])
-    sol_c = SolverEngine(carried).solve_batch(thetas)
-    sol_t = SolverEngine(ldp_t).solve_batch(thetas)
+    sol_c = SolverEngine(carried, device="cpu").solve_batch(thetas)
+    sol_t = SolverEngine(ldp_t, device="cpu").solve_batch(thetas)
     assert torch.all(sol_c.status == 1)
     assert torch.max(torch.abs(sol_c.U - sol_t.U)).item() <= 1e-10
 

@@ -10,6 +10,7 @@ import torch
 import linearmpc_tpu as lmpc
 import linearmpc_tpu_torch as tmpc
 from linearmpc_tpu_torch.ops import bulk, polish
+from linearmpc_tpu_torch.ops.engine import SolverEngine
 from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
 
 GOLDEN_U = 1.7612519326
@@ -33,10 +34,44 @@ def test_golden_control(dtype):
 
 
 def test_golden_default_setup_is_exact_f64():
+    """After setup(device="cpu"), a mutator's invalidate() and the implicit
+    setup of the next solve stay on the CPU, on the exact float64 path."""
     mpc, _ = tmpc.mpc_examples("invpend")
+    mpc.setup(device="cpu")
+    mpc.invalidate()
     u = mpc.compute_control([5.0, 5.0, 0.0, 0.0])  # setup() on first solve
+    assert mpc.mpqp_issetup and mpc.engine.device.type == "cpu"
     assert mpc.engine.dtype == torch.float64 and not mpc.engine.tier
     assert abs(u[0] - GOLDEN_U) < 1e-6
+
+
+def test_setup_without_device_needs_cuda(monkeypatch):
+    """The entry points run on the card unless told otherwise: without CUDA,
+    an explicit setup(), an implicit one and the engine raise and ask for
+    device="cpu" instead of falling back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mpc, _ = tmpc.mpc_examples("invpend")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mpc.setup()
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        mpc.compute_control([5.0, 5.0, 0.0, 0.0])
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        tmpc.build_rollout(mpc)
+    assert not mpc.mpqp_issetup
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SolverEngine(mpc.setup(device="cpu").engine.ldp)
+
+
+def test_implicit_setup_reuses_explicit_dtype():
+    """An implicit setup keeps the dtype of the last explicit one as well:
+    the float32 small-m tier (its kernels' plain versions on the CPU)."""
+    mpc, _ = tmpc.mpc_examples("invpend")
+    mpc.setup(device="cpu", dtype=torch.float32)
+    mpc.set_objective(Q=[1.0, 1.0], R=[0.0], Rr=[1.0])  # a mutator: invalidates
+    assert not mpc.mpqp_issetup
+    res = tmpc.build_rollout(mpc)(np.zeros((2, 4)), np.zeros((2, 2)), None, N=3)
+    assert mpc.engine.device.type == "cpu" and mpc.engine.dtype == torch.float32
+    assert mpc.engine.path == "small" and res.us.dtype == torch.float32
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -44,7 +79,7 @@ def test_batched_controls_match_numpy_oracle(dtype):
     """Batched controls within 1e-9 of solve_ldp_numpy on 256 theta (the
     accuracy contract of the JAX package's bench headline)."""
     mpc, _ = tmpc.mpc_examples("invpend")
-    mpc.setup(dtype=dtype)
+    mpc.setup(device="cpu", dtype=dtype)
     thetas = _thetas("invpend", 256, 0)
     sol = mpc.engine.solve_batch(thetas)
     assert torch.all(sol.status == 1)
@@ -66,7 +101,7 @@ def test_status_codes_match_jax_engine(name, dtype):
     mj, _ = lmpc.mpc_examples(name)
     mj.setup()
     mt, _ = tmpc.mpc_examples(name)
-    mt.setup(dtype=dtype)
+    mt.setup(device="cpu", dtype=dtype)
     assert mt.engine.ldp.m <= bulk.MAX_M
     thetas = _thetas(name, 64, 1)
     sol_j = mj.engine.solve_batch(jnp.asarray(thetas))
@@ -84,7 +119,7 @@ def test_invpend_unconstrained_matches_lstsq(dtype):
     """Mirrors tests/test_golden.py: with inactive constraints the QP
     solution is -H^-1 (f + f_theta theta)."""
     mpc, _ = tmpc.mpc_examples("invpend")
-    mpc.setup(dtype=dtype)
+    mpc.setup(device="cpu", dtype=dtype)
     qp = mpc.mpQP
     theta = mpc.form_parameter([0.01, 0.0, 0.0, 0.0])
     U_expected = -np.linalg.solve(qp.H, qp.f + qp.f_theta @ theta)
@@ -97,7 +132,7 @@ def test_invpend_unconstrained_matches_lstsq(dtype):
 def test_cold_vs_warm_start_equality(dtype):
     """Mirrors tests/test_rollout.py::test_cold_vs_warm_start_equality."""
     mpc, _ = tmpc.mpc_examples("invpend")
-    mpc.setup(dtype=dtype)
+    mpc.setup(device="cpu", dtype=dtype)
     rng = np.random.default_rng(21)
     thetas = np.hstack([rng.uniform(-10, 10, (32, 6)), rng.uniform(-2, 2, (32, 1))])
     cold = mpc.engine.solve_batch(thetas)
@@ -111,7 +146,7 @@ def test_cold_vs_warm_start_equality(dtype):
 
 def test_tier_on_cpu_runs_plain_versions_only():
     mpc, _ = tmpc.mpc_examples("invpend")
-    mpc.setup(dtype=torch.float32)
+    mpc.setup(device="cpu", dtype=torch.float32)
     before = (bulk.LAUNCHES, polish.LAUNCHES)
     mpc.engine.solve_batch(_thetas("invpend", 8, 2))
     assert (bulk.LAUNCHES, polish.LAUNCHES) == before
@@ -121,7 +156,7 @@ def test_tier_routes_stragglers_to_f64():
     """A straggler lane -- the bulk phase cut off after one iteration --
     comes back exact from the float64 continuation."""
     mpc, _ = tmpc.mpc_examples("invpend")
-    mpc.setup(dtype=torch.float32)
+    mpc.setup(device="cpu", dtype=torch.float32)
     eng = mpc.engine
     thetas = _thetas("invpend", 16, 3)
     eng.bulk_cap = 1

@@ -10,7 +10,11 @@ kernel is built without FMA contraction and sums in its plain version's
 order, so kernel and plain version agree bit for bit: K1/K2 at invpend
 m = 5, K3 (``ops/iu.py``) at m = 48 and K4 (``ops/ciu.py``) at m = 64, cold
 in float32 and float64 and warm with the warm-ray retry in float32, then
-the two large-m tiers against the oracle.
+the two large-m tiers against the oracle. K3 and K4 are also held against
+their plain versions at ragged batch sizes with one shared entry inverse,
+with a per-lane ``eq``, and on their wide-team paths: K3 in float64 at
+m = 160 (R in global memory) and K4 in float64 at s = 96 (the guard
+ladder's capacity).
 """
 
 import numpy as np
@@ -199,3 +203,105 @@ def test_largem_tier_on_card_matches_oracle(k_hi):
         U_ref, *_rest, s_ref = solve_ldp_numpy(mpc.engine.ldp, thn[i])
         if s_ref == 1:
             assert st[i] == 1 and np.max(np.abs(U[i] - U_ref)) <= 1e-9
+
+
+def _same(out_k, out_p):
+    """Kernel and plain outputs equal entry for entry (NaN where both are)."""
+    for a, b in zip(out_k, out_p):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype.is_floating_point:
+            assert bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+        else:
+            assert torch.equal(a, b)
+
+
+def _box(k_hi, B, seed, Np=50, box=12.0):
+    """invpend Np/8 with the +-18 state box on ks 2..k_hi-1 on the card
+    (m = 48 at k_hi = 12, 128 at 32, 160 at 40) and B thetas."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend", Np, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
+                       ks=range(2, k_hi))
+    mpc.setup(device="cuda", dtype=torch.float32)
+    rng = np.random.default_rng(seed)
+    th = np.hstack([rng.uniform(-box, box, (B, 6)), rng.uniform(-2, 2, (B, 1))])
+    return mpc.engine, torch.as_tensor(th, device="cuda")
+
+
+@pytest.mark.parametrize("B", [1, 17, 8193])
+@pytest.mark.parametrize("kind", ["iu", "ciu"])
+def test_gi_kernel_ragged_batch_matches_plain(kind, B):
+    """K3 (m = 48) and K4 (m = 128, s = 16) cold in float32 from one shared
+    (n, n) entry inverse, at a batch of one lane, one lane more than a
+    block holds, and one more than 8192."""
+    eng, th = _box(12 if kind == "iu" else 32, B, seed=B)
+    args = _gi_inputs(eng, th, torch.float32)
+    kw = _gi_kw(eng, torch.float32)
+    if kind == "iu":
+        R0 = torch.eye(eng.ldp.m, device="cuda")
+        out_k = iu.phase1_iu(*args, R0, **kw)
+        out_p = iu.phase1_iu_plain(*args, R0.expand(B, -1, -1), **kw)
+    else:
+        s = eng.ciu_s_max
+        sl0 = torch.full((B, s), -1, dtype=torch.int64, device="cuda")
+        Rw0 = torch.eye(s, device="cuda")
+        out_k = ciu.phase1_ciu(*args, sl0, Rw0, **dict(kw, max_iter=eng.bulk_cap_p))
+        out_p = ciu.phase1_ciu_plain(*args, sl0, Rw0.expand(B, -1, -1),
+                                     **dict(kw, max_iter=eng.bulk_cap_p))
+    _same(out_k, out_p)
+
+
+@pytest.mark.parametrize("kind", ["iu", "ciu"])
+def test_gi_kernel_per_lane_eq_matches_plain(kind):
+    """A per-lane equality mask (B, m), as the branch-and-bound frontier
+    passes one: every lane starts with its own equality rows active and its
+    own entry inverse."""
+    B = 1000
+    eng, th = _box(12 if kind == "iu" else 32, B, seed=11)
+    m = eng.ldp.m
+    rng = np.random.default_rng(12)
+    eq = torch.as_tensor(rng.uniform(size=(B, m)) < 0.05, device="cuda")
+    args = list(_gi_inputs(eng, th, torch.float32))
+    args[4], args[7] = eq, eq
+    kw = _gi_kw(eng, torch.float32)
+    if kind == "iu":
+        R0 = iu.init_R_batch(eng.arrays.G_solve, eq)
+        out_k = iu.phase1_iu(*args, R0, **kw)
+        out_p = iu.phase1_iu_plain(*args, R0, **kw)
+    else:
+        Rw0, sl0, _ = ciu.init_compact_batch(eng.arrays.G_solve, eq, eng.ciu_s_max)
+        out_k = ciu.phase1_ciu(*args, sl0, Rw0, **kw)
+        out_p = ciu.phase1_ciu_plain(*args, sl0, Rw0, **kw)
+    _same(out_k, out_p)
+
+
+def test_iu_kernel_f64_global_inverse_matches_plain():
+    """K3 in float64 at m = 160: R (200 KB a lane) lives in global memory and
+    a 128-thread team runs each lane."""
+    eng, th = _box(40, 64, seed=13, box=10.0)
+    assert eng.ldp.m == 160
+    args = _gi_inputs(eng, th, torch.float64)
+    R0 = torch.eye(160, dtype=torch.float64, device="cuda")
+    kw = _gi_kw(eng, torch.float64)
+    _same(iu.phase1_iu(*args, R0, **kw), iu.phase1_iu_plain(*args, R0, **kw))
+
+
+def test_ciu_kernel_f64_ladder_capacity_matches_plain():
+    """K4 in float64 at the guard ladder's s = 96 (m = 128): a 128-thread
+    team per lane, Rw in shared memory."""
+    eng, th = _box(32, 64, seed=14, box=10.0)
+    args = _gi_inputs(eng, th, torch.float64)
+    Rw0, sl0, _ = ciu.init_compact_batch(eng.arrays_hi.G_solve, args[7], 96)
+    kw = _gi_kw(eng, torch.float64)
+    _same(ciu.phase1_ciu(*args, sl0, Rw0, **kw), ciu.phase1_ciu_plain(*args, sl0, Rw0, **kw))
+
+
+def test_default_setup_lands_on_cuda_f32():
+    """setup() with no device runs on the card in float32."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend")
+    u = mpc.setup().compute_control([5.0, 5.0, 0.0, 0.0])
+    assert mpc.engine.device.type == "cuda" and mpc.engine.dtype == torch.float32
+    assert abs(u[0] - 1.7612519326) < 1e-6

@@ -23,6 +23,7 @@ def test_import_leaves_jax_out():
         "import linearmpc_tpu_torch as L\n"
         "import linearmpc_tpu_torch.ops.engine, linearmpc_tpu_torch.rollout\n"
         "mpc, _ = L.mpc_examples('invpend')\n"
+        "mpc.setup(device='cpu')\n"
         "print(mpc.compute_control([5.0, 5.0, 0.0, 0.0])[0])\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'linearmpc_tpu'))\n"
@@ -59,7 +60,7 @@ def test_largem_modules_leave_jax_out():
         "mpc, _ = L.mpc_examples('invpend', 30, 8)\n"
         "mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),\n"
         "                   ks=range(2, 12))\n"
-        "mpc.setup(dtype=torch.float32)\n"
+        "mpc.setup(device='cpu', dtype=torch.float32)\n"
         "assert mpc.engine.path == 'iu'\n"
         "print(mpc.compute_control([5.0, 5.0, 0.0, 0.0])[0])\n"
         "bad = sorted(m for m in sys.modules\n"

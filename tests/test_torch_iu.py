@@ -215,3 +215,34 @@ def test_init_R_batch_matches_jax():
 @pytest.mark.parametrize("m", [5, 20, 48, 52, 53, 64, 128])
 def test_iu_max_chunk_lanes_matches_jax(m):
     assert iu.iu_max_chunk_lanes(m) == P.iu_max_chunk_lanes(m)
+
+
+@pytest.mark.parametrize("kind", ["matrix", "expanded", "batch"])
+def test_entry_inverse_goes_in_once(kind):
+    """One (n, n) entry inverse, or a batch that views one matrix, reaches
+    the kernels once with batch stride 0 (no (B, n, n) copy); any other
+    batch goes in whole, contiguous."""
+    eye = torch.eye(6)
+    inv = {"matrix": eye, "expanded": eye.expand(5, 6, 6),
+           "batch": eye.repeat(5, 1, 1).transpose(1, 2)}[kind]
+    t, stride = iu.entry_inverse(inv)
+    assert t.is_contiguous() and torch.equal(t.reshape(-1, 6, 6)[0], eye)
+    assert stride == (36 if kind == "batch" else 0)
+    assert tuple(t.shape) == ((5, 6, 6) if kind == "batch" else (6, 6))
+    assert tuple(iu.batch_inverse(inv, 5).shape) == (5, 6, 6)
+
+
+def test_phase1_iu_takes_one_entry_inverse():
+    """phase1_iu and its plain version take one (m, m) entry inverse for
+    every lane and give what the expanded batch gives."""
+    e = _problem()
+    m = e.ldp.m
+    du, dl = (torch.tensor(a) for a in _bounds(e, jnp.float32, seed=6))
+    G, Gs = iu.gram(e.ldp, torch.float32, "cpu")
+    args = (G, Gs, du, dl, torch.tensor(np.asarray(e.arrays.is_eq)),
+            torch.tensor(np.asarray(e.arrays.is_immutable)), torch.zeros(B, m),
+            torch.zeros(B, m, dtype=torch.bool), torch.ones(B, m, dtype=torch.bool))
+    kw = dict(max_iter=CAP, primal_tol=e.primal_tol, sign_tol=e.sign_tol)
+    one = iu.phase1_iu(*args, torch.eye(m), **kw)
+    for a, b in zip(one, iu.phase1_iu_plain(*args, torch.eye(m).expand(B, m, m), **kw)):
+        assert torch.equal(a, b)

@@ -37,7 +37,7 @@ def _box(mpc, k_hi):
 
 def _port(path, **setup):
     mpc, _ = tmpc.mpc_examples("invpend", 30, 8)
-    return _box(mpc, K_HI[path]).setup(dtype=torch.float32, **setup)
+    return _box(mpc, K_HI[path]).setup(device="cpu", dtype=torch.float32, **setup)
 
 
 def _jax(path):
@@ -173,7 +173,7 @@ def test_float32_tier_gap_raises(Nc):
     there) names its ROADMAP item."""
     mpc, _ = tmpc.mpc_examples("invpend", 50, Nc)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mpc.setup(dtype=torch.float32)
+        mpc.setup(device="cpu", dtype=torch.float32)
 
 
 def test_compact_guard_ladder_resolves():
@@ -245,7 +245,7 @@ def test_examples_on_iu_tier_match_jax_f64(name):
     ballplate the NumPy oracle itself is off by up to 5e-9, so the f64
     engine is the reference here)."""
     mt, prange = tmpc.mpc_examples(name)
-    mt.setup(dtype=torch.float32)
+    mt.setup(device="cpu", dtype=torch.float32)
     assert mt.engine.path == "iu"
     mj, _ = lmpc.mpc_examples(name)
     mj.setup()
@@ -257,3 +257,14 @@ def test_examples_on_iu_tier_match_jax_f64(name):
     assert np.array_equal(sol_t.status.numpy(), st_j)
     ok = st_j == 1
     assert np.max(np.abs(sol_t.U.numpy()[ok] - np.asarray(sol_j.U)[ok])) <= 1e-8
+
+
+@pytest.mark.parametrize("path", ["iu", "compact"])
+def test_cold_entry_inverse_is_one_matrix(path):
+    """A cold batch enters K3/K4 with one entry inverse viewed by every lane
+    (batch stride 0), not a materialised (B, n, n) copy."""
+    eng = _port(path).engine
+    inv = eng.iu_R0_init(64) if path == "iu" else eng._ciu_cold_carry(64)[1]
+    n = eng.ldp.m if path == "iu" else eng.ciu_s_max
+    assert tuple(inv.shape) == (64, n, n) and inv.stride(0) == 0
+    assert torch.equal(inv[0], torch.eye(n))

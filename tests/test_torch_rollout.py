@@ -33,7 +33,7 @@ def test_invpend_rollout_matches_jax_f64():
     x0s, rs = _invpend_lanes()
     us_j, st_j = _jax_us(x0s, rs, 50)
     mpc, _ = tmpc.mpc_examples("invpend")
-    mpc.setup(dtype=torch.float64)
+    mpc.setup(device="cpu", dtype=torch.float64)
     res = build_rollout(mpc)(x0s, rs, None, N=50)
     assert res.us.shape == (8, 50, 1) and res.xs.shape == (8, 50, 4)
     assert np.max(np.abs(res.us.numpy() - us_j)) < 1e-8
@@ -47,7 +47,7 @@ def test_invpend_rollout_f32_tier_within_f32_drift():
     x0s, rs = _invpend_lanes()
     us_j, _st = _jax_us(x0s, rs, 50)
     mpc, _ = tmpc.mpc_examples("invpend")
-    mpc.setup(dtype=torch.float32)
+    mpc.setup(device="cpu", dtype=torch.float32)
     res = build_rollout(mpc)(x0s, rs, None, N=50)
     assert res.us.dtype == torch.float32
     assert torch.all(res.status == 1)
@@ -72,10 +72,10 @@ def test_kalman_observer_rollout_matches_jax():
     mj.setup()
     us_j = np.asarray(jax_build_rollout(mj)(x0, np.array([[0.5]]), None, N=40).us)
     mt = _observer_mpc(TMPC)
-    mt.setup()
+    mt.setup(device="cpu")
     res = build_rollout(mt)(x0, np.array([[0.5]]), None, N=40)
     assert np.max(np.abs(res.us.numpy() - us_j)) < 1e-8
-    sim = tmpc.simulate_kw(_observer_mpc(TMPC), x0=x0[0], N=40, r=[0.5])
+    sim = tmpc.simulate_kw(_observer_mpc(TMPC).setup(device="cpu"), x0=x0[0], N=40, r=[0.5])
     assert np.max(np.abs(res.us.numpy()[0].T - sim.us)) < 1e-8
 
 
@@ -119,6 +119,6 @@ def test_preview_and_offset_free_rollouts_match_jax(kind):
     mj.setup()
     us_j = np.asarray(jax_build_rollout(mj)(*args, N=N).us)
     mt = _preview_mpc(TMPC, kind)
-    mt.setup()
+    mt.setup(device="cpu")
     us_t = build_rollout(mt)(*args, N=N).us.numpy()
     assert np.max(np.abs(us_t - us_j)) < 1e-8
