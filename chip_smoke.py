@@ -23,10 +23,14 @@ each path and read just after:
 then times kernels, tiers and rollouts [14]; holds K3 and K4 against
 their plain versions at ragged batch sizes, with a per-lane eq and on their
 wide-team paths (K3 f64 at m=160 with R in global memory, K4 f64 at s=96)
-[15]; and replays, compares and times the K3/K4 launches the paths make
-(cold, the second chance, one warm rollout step of each tier) [16]. Every
-K3/K4 comparison requires every lane to agree and lam and the inverse to
-be equal bit for bit. Every phase asserts; any failure exits non-zero.
+[15]; replays, compares and times the K3/K4 launches the paths make
+(cold, the second chance, one warm rollout step of each tier) [16]; and
+does the same for the K1/K2 launches of the small-m path (the cold tier's
+K1, f64 stragglers and K2; a warm rollout step's K1 and K2), then runs one
+rollout step under ``torch.cuda.set_sync_debug_mode("error")`` and counts
+the syncs of one cold batch [17]. Every comparison of a kernel with its
+plain version requires every lane to agree and the outputs to be equal bit
+for bit. Every phase asserts; any failure exits non-zero.
 Without CUDA it exits 1 and prints no result. The second-to-last line is
 a JSON object with, per kernel, its launches on its path's run (and on
 each path), its error against the plain version, its call and device
@@ -41,6 +45,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -53,6 +58,8 @@ GOLDEN_U = 1.7612519326
 B_COLD = 32768              # cold stream batch (bench.py:90)
 B_ROLL, N_ROLL = 4096, 500  # closed-loop rollout (bench.py:215)
 N_ORACLE = 256              # lanes held against the NumPy f64 oracle
+# K1/K2 checks at team sizes of 8 (m = 5, 6) and 16 threads (m = 10); the
+# card tests (tests/test_torch_gpu.py) take m = 4 (4 threads) and 8-9 too
 CASES = (("invpend", None, None), ("aircraft", None, None), ("invpend", 50, 10))
 B_LARGE = 8192              # cold large-m batches (bench.py:313, :485)
 B_ROLL_IU, N_ROLL_IU = 4096, 500   # IU rollout (bench.py:364)
@@ -220,61 +227,64 @@ def phase1_inputs(eng, thetas, dtype):
     dt = th @ arr.Dth.T
     B, m = th.shape[0], eng.ldp.m
     return (arr.subset_inv, arr.G, arr.du + dt, arr.dl + dt, eng._eq, eng._immut,
-            torch.zeros((B, m), dtype=dtype, device=dev), arr.is_eq.expand(B, m).clone(),
+            torch.zeros((B, m), dtype=dtype, device=dev), arr.is_eq.expand(B, m).contiguous(),
             torch.ones((B, m), dtype=torch.bool, device=dev))
 
 
+def k1_kw(eng, dtype) -> dict:
+    """K1's keywords in the tier: the f32 bulk phase's, or the f64
+    continuation's (engine.py's STRAGGLER_ITERS, finish_from_state's tolerances)."""
+    if dtype == torch.float32:
+        return dict(max_iter=eng.bulk_cap, primal_tol=eng.primal_tol, sign_tol=eng.sign_tol)
+    return dict(max_iter=24, primal_tol=1e-6, sign_tol=1e-11)
+
+
+def equal_outputs(out_k, out_p) -> tuple[int, int]:
+    """(lanes whose outputs differ anywhere, float entries that differ) of a
+    kernel against its plain version; NaN counts as equal to NaN."""
+    B = out_k[0].shape[0]
+    bad = torch.zeros(B, dtype=torch.bool, device=out_k[0].device)
+    n_float = 0
+    for a, b in zip(out_k, out_p):
+        same = (a == b) | (torch.isnan(a) & torch.isnan(b)) if a.is_floating_point() else a == b
+        same = same.reshape(B, -1).all(1)
+        bad |= ~same
+        n_float += int((~same).sum()) if a.is_floating_point() else 0
+    return int(bad.sum()), n_float
+
+
 def compare_k1(name, eng, thetas, dtype):
-    """K1 against phase1_plain on the same inputs; returns (lam err, kernel
-    outputs)."""
-    f32 = dtype == torch.float32
-    kw = dict(max_iter=eng.bulk_cap if f32 else eng.bulk_cap + 24,
-              primal_tol=eng.primal_tol if f32 else 1e-6,
-              sign_tol=eng.sign_tol if f32 else 1e-11)
+    """K1 against phase1_plain on the same inputs: no lane may differ, bit
+    for bit (the kernel sums in the plain version's order without FMA
+    contraction). Returns (max |dlam|, kernel outputs)."""
     args = phase1_inputs(eng, thetas, dtype)
+    kw = k1_kw(eng, dtype)
     out_k = bulk.phase1(*args, **kw)
     out_p = bulk.phase1_plain(*args, **kw)
     torch.cuda.synchronize()
-    lam_k, act_k, side_k, it_k, done_k = out_k
-    lam_p, act_p, side_p, it_p, done_p = out_p
-    same = (act_k == act_p).all(1) & (side_k == side_p).all(1) & (done_k == done_p)
-    frac = 1.0 - same.double().mean().item()
-    # f32: at most 0.1% of lanes at invpend m=5 and 2% otherwise, the bar
-    # the JAX package sets between its Pallas and XLA paths at m=8
-    # (tests/test_rollout.py:254-259); f64: 0.01% everywhere. The kernel
-    # sums in the plain version's order without FMA contraction, so the
-    # two agree bit for bit unless the card's arithmetic differs.
-    bar = (0.001 if eng.ldp.m == 5 else 0.02) if f32 else 1e-4
-    # where the working sets agree, lam differs by summation order only
-    tol = 1e-4 if f32 else 1e-10
-    dl = (lam_k - lam_p).abs()[same]
-    rel = (dl / (1.0 + lam_p.abs()[same])).max().item() if dl.numel() else 0.0
-    err = dl.max().item() if dl.numel() else 0.0
-    log(f"  K1 {name} m={eng.ldp.m} {str(dtype)[6:]}: disagreeing lanes "
-        f"{int((~same).sum())}/{len(same)} ({frac:.2e}, bar {bar}), "
-        f"max |dlam| {err:.3e}, rel {rel:.3e} (tol {tol}), mean iters "
-        f"{it_k.double().mean().item():.2f}, done {done_k.double().mean().item():.4f}")
-    check(frac <= bar, f"K1 {name} {dtype}: {frac:.2e} of lanes disagree (bar {bar})")
-    check(rel <= tol, f"K1 {name} {dtype}: lam rel err {rel:.3e} > {tol}")
+    n_bad, n_float = equal_outputs(out_k, out_p)
+    err = (out_k[0] - out_p[0]).abs().max().item()
+    log(f"  K1 {name} m={eng.ldp.m} {str(dtype)[6:]}: disagreeing lanes {n_bad}/{len(out_k[0])}, "
+        f"unequal float entries {n_float} (0 required), max |dlam| {err:.3e}, mean iters "
+        f"{out_k[3].double().mean().item():.2f}, done {out_k[4].double().mean().item():.4f}")
+    check(n_bad == 0, f"K1 {name} {dtype}: {n_bad} lanes differ from phase1_plain")
     return err, out_k
 
 
 def compare_k2(name, eng, thetas, act, side):
-    """K2 against polish_plain on the card; returns max |U| and |lam| err."""
+    """K2 against polish_plain on the card, bit for bit; returns max |U| and
+    |lam| err."""
     th = torch.as_tensor(thetas, device=eng.device, dtype=torch.float64)
-    U_k, lam_k, f_k, bad_k = polish.polish(eng._pd, th, act, side)
-    U_p, lam_p, f_p, bad_p = polish.polish_plain(eng._pd, th, act, side)
+    out_k = polish.polish(eng._pd, th, act, side)
+    out_p = polish.polish_plain(eng._pd, th, act, side)
     torch.cuda.synchronize()
-    rel = lambda a, b: ((a - b).abs() / (1.0 + b.abs())).max().item()
-    eU, eL, eF = rel(U_k, U_p), rel(lam_k, lam_p), rel(f_k, f_p)
-    flags_equal = bool(((bad_k > 1e-8) == (bad_p > 1e-8)).all())
-    log(f"  K2 {name} m={eng.ldp.m}: rel err U {eU:.3e}, lam {eL:.3e}, fval {eF:.3e}, "
-        f"bad>1e-8 flags equal {flags_equal} ({int((bad_k > 1e-8).sum())} flagged)")
-    # both float64, summed in the same order without FMA: 1e-12 relative
-    # is a bound on the card's arithmetic differing from the plain ops
-    check(eU <= 1e-12 and eL <= 1e-12, f"K2 {name}: U/lam err {eU:.3e}/{eL:.3e} > 1e-12")
-    check(flags_equal, f"K2 {name}: bad > 1e-8 flags differ")
-    return max((U_k - U_p).abs().max().item(), (lam_k - lam_p).abs().max().item())
+    n_bad, n_float = equal_outputs(out_k, out_p)
+    err = max((out_k[0] - out_p[0]).abs().max().item(), (out_k[1] - out_p[1]).abs().max().item())
+    log(f"  K2 {name} m={eng.ldp.m}: disagreeing lanes {n_bad}/{len(th)}, unequal entries "
+        f"{n_float} (0 required), max |dU|, |dlam| {err:.3e}, "
+        f"{int((out_k[3] > 1e-8).sum())} lanes with bad > 1e-8")
+    check(n_bad == 0, f"K2 {name}: {n_bad} lanes differ from polish_plain")
+    return err
 
 
 def largem_mpc(k_hi: int, device, dtype):
@@ -474,6 +484,101 @@ def replay_launches(launches: dict, timed: bool = True):
             f"device {fmt_ms(dev_ms)}, plain {ms_p:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
 
 
+def k1_bound(args, out) -> tuple[float, str]:
+    """K1's bound on this run's data: inputs and outputs once, and per
+    lane-iteration the subset solve and the slack (2 m^2 each) and O(m)
+    tests."""
+    m = args[2].shape[1]
+    flops = float(out[3].double().sum()) * (4 * m * m + 10 * m)
+    return bound(nbytes(*args) + nbytes(*out), flops, args[2].dtype)
+
+
+def k2_bound(pd, args, out) -> tuple[float, str]:
+    """K2's bound: the statics, theta, the masks and the outputs once, and
+    per lane the products of polish_plain."""
+    B, m = args[2].shape
+    n_u, nth = pd.Uth_off.shape
+    flops = B * 2 * (m * nth + 2 * m * m + 2 * n_u * nth + n_u * m + n_u * n_u + 2 * n_u)
+    return bound(nbytes(pd.subset, pd.packed, *args[1:]) + nbytes(*out), flops, torch.float64)
+
+
+def small_launches(mpc, th_dev, x0s, rs) -> dict:
+    """The K1/K2 launches of the small-m path, as (fn, args, kwargs) by
+    label: the cold tier's f32 bulk phase, its f64 stragglers and its K2,
+    and the K1 and K2 of the 11th step of the rollout."""
+    eng = mpc.engine
+    out = {}
+    k2 = []
+    k1 = record_calls(bulk, "phase1", lambda: k2.extend(record_calls(
+        polish, "polish", lambda: eng.solve_batch(th_dev))))
+    a, k = next(c for c in k1 if c[0][2].dtype == torch.float32)
+    out[f"K1 cold f32 B={a[2].shape[0]}"] = (bulk.phase1, a, k)
+    a, k = next(c for c in k1 if c[0][2].dtype == torch.float64)
+    out[f"K1 f64 stragglers B={a[2].shape[0]}"] = (bulk.phase1, a, k)
+    out[f"K2 cold B={k2[0][0][2].shape[0]}"] = (polish.polish, *k2[0])
+    k2 = []
+    k1 = record_calls(bulk, "phase1", lambda: k2.extend(record_calls(
+        polish, "polish", lambda: L.build_rollout(mpc)(x0s, rs, None, N=11))))
+    out[f"K1 warm rollout step B={k1[10][0][2].shape[0]}"] = (bulk.phase1, *k1[10])
+    out[f"K2 warm rollout step B={k2[10][0][2].shape[0]}"] = (polish.polish, *k2[10])
+    return out
+
+
+def replay_small(launches: dict) -> dict:
+    """Each recorded K1/K2 launch (``small_launches``) against its plain
+    version (bit for bit), then its call, device and plain time and its
+    bound; returns the numbers by kernel and label."""
+    rows = {}
+    for label, (fn, args, kw) in launches.items():
+        k1 = fn is bulk.phase1
+        plain = bulk.phase1_plain if k1 else polish.polish_plain
+        out_k = fn(*args, **kw)
+        out_p = plain(*args, **kw)
+        torch.cuda.synchronize()
+        n_bad, n_float = equal_outputs(out_k, out_p)
+        check(n_bad == 0, f"{label}: {n_bad} lanes differ from the plain version")
+        ms = cuda_ms(lambda: fn(*args, **kw), 20)
+        dev_ms = kernel_device_ms(lambda: [fn(*args, **kw) for _ in range(5)],
+                                  "phase1_kernel" if k1 else "polish_kernel")
+        ms_p = cuda_ms(lambda: plain(*args, **kw), 1, warmup=1)
+        b_ms, b_by = k1_bound(args, out_k) if k1 else k2_bound(args[0], args, out_k)
+        it = (f"iterations mean {out_k[3].double().mean().item():.3f} max {int(out_k[3].max())}"
+              f" (cap {kw['max_iter']}), " if k1 else "")
+        log(f"    {label}: disagreeing lanes {n_bad}/{len(out_k[0])}, unequal entries {n_float}; "
+            f"{it}call {ms:.4f} ms, device {fmt_ms(dev_ms)}, plain {ms_p:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by})")
+        rows.setdefault("K1" if k1 else "K2", {})[label] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+def sync_checks(mpc, th_dev, x0s, rs) -> int:
+    """One warm rollout step of the small-m path under the sync debug mode
+    "error" (it must make no device-to-host copy or synchronize), then the
+    syncs of one cold batch under "warn"; returns that count."""
+    eng = mpc.engine
+    steps = record_calls(eng, "fused_rollout_solve",
+                         lambda: L.build_rollout(mpc)(x0s, rs, None, N=11))
+    a, k = steps[10]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.fused_rollout_solve(*a, **k)
+    except RuntimeError as e:
+        fail(f"the small-m rollout step made a host sync: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eng.solve_batch(th_dev)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
 def status_line(sol) -> str:
     st = sol.status
     return (f"status 1 {(st == 1).double().mean().item():.6f}, -3 "
@@ -534,7 +639,7 @@ def main() -> int:
                 log(f"    ptxas {name}: {line.strip()}")
 
     # [2] K1 and [3] K2 against their plain versions on the card
-    log("[2] K1 (bulk phase) vs phase1_plain, cold, B=32768")
+    log("[2] K1 (bulk phase) vs phase1_plain, cold, B=32768, bit for bit")
     engines, k1_err, k2_err, k2_inputs = {}, None, None, {}
     for case in CASES:
         mpc, _ = L.mpc_examples(*case)
@@ -557,7 +662,7 @@ def main() -> int:
             log(f"  tier at m=10: status==1 {(sol.status == 1).double().mean().item():.6f}, "
                 f"max |U - U_oracle| over {N_ORACLE} lanes {e:.3e}")
             check(e <= 1e-9, f"m=10 tier error {e:.3e} > 1e-9")
-    log("[3] K2 (polish) vs polish_plain, on the K1 working sets")
+    log("[3] K2 (polish) vs polish_plain, on the K1 working sets, bit for bit")
     for name, (act, side) in k2_inputs.items():
         mpc, th = engines[name]
         e = compare_k2(name, mpc.engine, th, act, side)
@@ -638,16 +743,9 @@ def main() -> int:
                               "phase1_kernel")
     dev_k2 = kernel_device_ms(lambda: [polish.polish(eng._pd, th_dev, act, side)
                                        for _ in range(5)], "polish_kernel")
-    # bounds: K1 per lane-iteration the subset solve and the slack (2 m^2
-    # each) and O(m) tests; K2 per lane the products of polish_plain
-    m5 = eng.ldp.m
-    n_u, nth = eng._pd.Uth_off.shape
-    k1_bound = bound(nbytes(*args) + nbytes(*out_k1),
-                     float(out_k1[3].double().sum()) * (4 * m5 * m5 + 10 * m5), torch.float32)
-    k2_flops = B_COLD * 2 * (m5 * nth + 2 * m5 * m5 + 2 * n_u * nth + n_u * m5 + n_u * n_u
-                             + 2 * n_u)
-    k2_bound = bound(nbytes(*eng._pd[:11], th_dev, act, side)
-                     + nbytes(*polish.polish(eng._pd, th_dev, act, side)), k2_flops, torch.float64)
+    b_k1 = k1_bound(args, out_k1)
+    b_k2 = k2_bound(eng._pd, (eng._pd, th_dev, act, side),
+                    polish.polish(eng._pd, th_dev, act, side))
     ms_tier = cuda_ms(lambda: eng.solve_batch(th_dev), 10)
     t0 = time.perf_counter()
     rollout(x0s, rs, None, N=N_ROLL)
@@ -664,9 +762,9 @@ def main() -> int:
     card = card_line()
     log(f"[7] timings on {card}, invpend m=5, B={B_COLD}:")
     log(f"    K1 {ms_k1:.4f} ms (device {fmt_ms(dev_k1)}) vs phase1_plain {ms_k1p:.4f} ms; "
-        f"bound {k1_bound[0]:.5f} ms ({k1_bound[1]})")
+        f"bound {b_k1[0]:.5f} ms ({b_k1[1]})")
     log(f"    K2 {ms_k2:.4f} ms (device {fmt_ms(dev_k2)}) vs polish_plain {ms_k2p:.4f} ms; "
-        f"bound {k2_bound[0]:.5f} ms ({k2_bound[1]})")
+        f"bound {b_k2[0]:.5f} ms ({b_k2[1]})")
     log(f"    tier {ms_tier:.4f} ms/batch = {B_COLD / ms_tier * 1e3:,.0f} solves/s")
     log(f"    rollout {B_ROLL} x {N_ROLL} in {t_roll:.3f} s = "
         f"{B_ROLL * N_ROLL / t_roll:,.0f} control-steps/s")
@@ -855,6 +953,15 @@ def main() -> int:
     replay_launches(gi_launches(eng_iu, mpc_iu, th_iu, eng_c, mpc_c, th_c,
                                 np.random.default_rng(3)))
 
+    # [17] the K1/K2 launches of the small-m path, replayed alone, and its
+    # host syncs
+    log("[17] K1/K2 launches of the small-m path: vs plain, call / device / plain time, bound")
+    rs_small = np.zeros((B_ROLL, 2))
+    small_rows = replay_small(small_launches(mpc, th_dev, x0s, rs_small))
+    n_sync = sync_checks(mpc, th_dev, x0s, rs_small)
+    log(f"    rollout step under set_sync_debug_mode('error'): no sync; one cold batch of "
+        f"{B_COLD} under 'warn': {n_sync} synchronizing calls")
+
     # the counts of each kernel on each path's run
     per_path = lambda k: {p: by_path[p][k] for p in PATHS}
     none = "none: no single PyTorch call computes an early-exit active-set iteration"
@@ -865,13 +972,15 @@ def main() -> int:
          "replaces": "linearmpc_tpu/ops/pallas_solver.py:58",
          "launches": launches["bulk"], "launches_by_path": per_path("bulk"),
          "max_abs_err": k1_err, "ms": ms_k1, "device_ms": dev_k1, "plain_ms": ms_k1p,
-         "bound_ms": k1_bound[0], "bound_by": k1_bound[1], "library_ms": None},
+         "bound_ms": b_k1[0], "bound_by": b_k1[1], "library_ms": None,
+         "launch_shapes": small_rows["K1"]},
         {"name": "K2 polish", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/polish.cu",
          "replaces": "linearmpc_tpu/ops/pallas_polish.py:144",
          "launches": launches["polish"], "launches_by_path": per_path("polish"),
          "max_abs_err": k2_err, "ms": ms_k2, "device_ms": dev_k2, "plain_ms": ms_k2p,
-         "bound_ms": k2_bound[0], "bound_by": k2_bound[1], "library_ms": None},
+         "bound_ms": b_k2[0], "bound_by": b_k2[1], "library_ms": None,
+         "launch_shapes": small_rows["K2"]},
         {"name": "K3 GI inverse update", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/iu.cu",
          "replaces": "linearmpc_tpu/ops/pallas_iu.py:107",

@@ -2,12 +2,13 @@
 
 Replaces ``linearmpc_tpu/ops/pallas_solver.py::_iteration_kernel`` (and the
 functions that loop it, ``phase1_pallas`` / ``phase1_pallas_while``) with the hand-written
-CUDA kernel ``csrc/bulk.cu``: one thread per lane runs the whole early-exit
-loop, so the fixed scan and the while-variant of the JAX package give the
-same result here. The kernel is latency-bound (a few hundred flops per
-iteration per lane and one dependent gather of the working-set inverse);
-it keeps each lane's state in registers and the subset table in shared
-memory where it fits (see the header of ``csrc/bulk.cu``).
+CUDA kernel ``csrc/bulk.cu``: a team of threads per lane runs the whole
+early-exit loop, so the fixed scan and the while-variant of the JAX package
+give the same result here. The kernel is latency-bound (a few hundred flops
+per iteration per lane and one dependent gather of the working-set
+inverse); each thread keeps its row's state in registers, and the subset
+table sits in shared memory where it is small (see the header of
+``csrc/bulk.cu``).
 
 ``phase1`` keeps ``phase1_pallas``'s batch-major signature and returns.
 On a CUDA tensor it launches the kernel (float32 or float64) or raises; on
@@ -137,6 +138,20 @@ def bitmask(flags) -> int:
     return sum(1 << i for i, f in enumerate(flags) if f)
 
 
+def row_bits(flags: torch.Tensor) -> int:
+    """``bitmask`` of an (m,) bool tensor on the host, kept on the tensor
+    until it is modified in place: the engines pass the same mask tensors
+    to every launch."""
+    if flags.device.type != "cpu":
+        raise ValueError("the kernels' eq/immut masks must be host tensors "
+                         f"(reading them from {flags.device} would sync the device)")
+    cached = getattr(flags, "_row_bits", None)
+    if cached is None or cached[0] != flags._version:
+        cached = (flags._version, bitmask(flags.tolist()))
+        flags._row_bits = cached
+    return cached[1]
+
+
 _ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 12 + [ctypes.c_int]
              + [ctypes.c_uint] * 2 + [ctypes.c_int] + [ctypes.c_double] * 2
              + [ctypes.c_void_p])
@@ -151,16 +166,21 @@ def _phase1_cuda(subset, G, du_t, dl_t, eq, immut, lam0, act0, side0, *,
         raise TypeError(f"phase1 kernel takes float32 or float64, got {dtype}")
     if not 1 <= m <= MAX_M:
         raise ValueError(f"phase1 kernel takes 1 <= m <= {MAX_M}, got m={m}")
-    if tuple(subset.shape) != (2**m, m, m) or tuple(G.shape) != (m, m):
+    if subset.shape != (2**m, m, m) or G.shape != (m, m):
         raise ValueError("subset must be (2^m, m, m) and G (m, m)")
-    for name, t in (("subset", subset), ("G", G), ("dl_t", dl_t), ("lam0", lam0)):
-        if t.device != dev or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} on {dev}")
-    for name, t in (("dl_t", dl_t), ("lam0", lam0), ("act0", act0), ("side0", side0)):
-        if tuple(t.shape) != (B, m):
-            raise ValueError(f"{name} must be ({B}, {m})")
-    if act0.device != dev or side0.device != dev:
-        raise ValueError(f"act0/side0 must be on {dev}")
+    ins = (subset, G, du_t, dl_t, lam0, act0, side0)
+    for t in ins:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"phase1 inputs must be contiguous on {dev}")
+    for t in ins[:5]:
+        if t.dtype != dtype:
+            raise ValueError(f"subset, G, du_t, dl_t and lam0 must be {dtype}")
+    for t in ins[3:]:
+        if t.shape != (B, m):
+            raise ValueError(f"dl_t, lam0, act0 and side0 must be ({B}, {m})")
+    if act0.dtype != torch.bool or side0.dtype != torch.bool:
+        raise ValueError("act0 and side0 must be bool")
+    eq_bits, immut_bits = row_bits(eq), row_bits(immut)
     lam = torch.empty((B, m), dtype=dtype, device=dev)
     act = torch.empty((B, m), dtype=torch.bool, device=dev)
     side = torch.empty((B, m), dtype=torch.bool, device=dev)
@@ -168,19 +188,13 @@ def _phase1_cuda(subset, G, du_t, dl_t, eq, immut, lam0, act0, side0, *,
     done = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
         return lam, act, side, iters, done
-    ins = [t.contiguous() for t in (subset, G, du_t, dl_t, lam0,
-                                    act0.to(torch.bool), side0.to(torch.bool))]
-    lib = cuda_lib.load("bulk")
-    fn = lib.lmpc_phase1
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = cuda_lib.function("bulk", "lmpc_phase1", _ARGTYPES)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(0 if dtype == torch.float32 else 1, m,
                  *(t.data_ptr() for t in ins),
                  *(t.data_ptr() for t in (lam, act, side, iters, done)),
-                 B, bitmask(eq), bitmask(immut), int(max_iter),
-                 float(primal_tol), float(sign_tol), stream)
+                 B, eq_bits, immut_bits, int(max_iter),
+                 float(primal_tol), float(sign_tol), cuda_lib.stream(dev))
     cuda_lib.check(err, "phase1 kernel launch")
     LAUNCHES += 1
     return lam, act, side, iters, done
@@ -192,8 +206,9 @@ def phase1(subset, G, du_t, dl_t, eq, immut, lam0, act0, side0, *,
 
     ``subset`` (2^m, m, m), ``G`` (m, m), ``du_t``/``dl_t``/``lam0`` (B, m)
     in one float dtype; ``act0``/``side0`` (B, m) bool; ``eq``/``immut``
-    (m,) bool on any device. On CUDA the kernel runs; on the CPU the plain
-    version does.
+    (m,) bool. On CUDA the kernel runs: every input contiguous on the card
+    and ``eq``/``immut`` on the host (``row_bits``), so a launch makes no
+    device sync. On the CPU the plain version does.
     """
     kw = dict(max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol)
     if du_t.device.type == "cuda":

@@ -5,8 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled with
 so a build takes seconds). The build happens on first use, keyed by a hash
 of the source, the shared ``csrc/*.cuh`` headers and the flags, into
 ``linearmpc_tpu_torch/_build/``; a failed build raises. ``build_all``
-compiles several sources at once, one ``nvcc`` each. Nothing here runs at
-import time.
+compiles several sources at once, one ``nvcc`` each. ``function`` hands out
+an entry point with its argument types set once, so a launch pays only for
+the call. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -32,6 +35,7 @@ NVCC_FLAGS = [
 ]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 BUILD_SECONDS: dict[str, float] = {}
 PTXAS_LOG: dict[str, str] = {}
 
@@ -72,6 +76,23 @@ def load(name: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib
+
+
+def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of ``csrc/<name>.cu``, returning a
+    ``cudaError_t`` as int, with its argument types set on first use."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FUNCS[(name, symbol)] = fn
+    return fn
+
+
+def stream(device: torch.device) -> int:
+    """The raw handle of PyTorch's current stream on a CUDA ``device``."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def build_all(names) -> None:

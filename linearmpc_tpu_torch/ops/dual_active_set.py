@@ -47,6 +47,8 @@ class LDPArrays(NamedTuple):
     is_eq: torch.Tensor
     is_immutable: torch.Tensor
     subset_inv: torch.Tensor | None  # (2^m, m, m) working-set inverse cache
+    is_eq_host: torch.Tensor          # is_eq and is_immutable on the host, as
+    is_immutable_host: torch.Tensor   # the kernels take them (no device sync)
 
 
 class DualState(NamedTuple):
@@ -69,6 +71,7 @@ class Solution(NamedTuple):
 
 def to_device_arrays(ldp: LDPData, dtype, device, subset_inv=None) -> LDPArrays:
     cast = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64), device=device).to(dtype)
+    host = lambda a: torch.as_tensor(np.asarray(a, bool))
     G = cast(ldp.G)
     G_solve = cast(ldp.G + np.diag(np.asarray(ldp.rho_soft, dtype=np.float64)))
     return LDPArrays(
@@ -76,9 +79,9 @@ def to_device_arrays(ldp: LDPData, dtype, device, subset_inv=None) -> LDPArrays:
         Dth=cast(ldp.Dth), du=cast(ldp.du), dl=cast(ldp.dl),
         HinvET=cast(ldp.HinvET), Uth_off=cast(ldp.Uth_off), u_off=cast(ldp.u_off),
         H=cast(ldp.H), f=cast(ldp.f), f_theta=cast(ldp.f_theta),
-        is_eq=torch.as_tensor(np.asarray(ldp.is_eq, bool), device=device),
-        is_immutable=torch.as_tensor(np.asarray(ldp.is_immutable, bool), device=device),
+        is_eq=host(ldp.is_eq).to(device), is_immutable=host(ldp.is_immutable).to(device),
         subset_inv=None if subset_inv is None else cast(subset_inv),
+        is_eq_host=host(ldp.is_eq), is_immutable_host=host(ldp.is_immutable),
     )
 
 
@@ -199,7 +202,8 @@ def finish_from_state(arr_hi: LDPArrays, thetas, lam, active, side, iters0, *,
     """High-precision continuation + primal recovery from a bulk-phase
     state: each lane runs at most ``max_iter`` more iterations, counting
     from ``iters0``. With a subset table (m <= 10) this is the K1 kernel's
-    float64 instantiation on CUDA and its plain version on the CPU."""
+    float64 instantiation on CUDA (given the host copies of the masks, so
+    the call makes no device sync) and its plain version on the CPU."""
     dtype, dev = arr_hi.G.dtype, arr_hi.G.device
     thetas = thetas.to(dev, dtype)
     du_t, dl_t = _transformed_bounds(arr_hi, thetas)
@@ -208,8 +212,8 @@ def finish_from_state(arr_hi: LDPArrays, thetas, lam, active, side, iters0, *,
     m = arr_hi.G.shape[0]
     if arr_hi.subset_inv is not None and m <= bulk.MAX_M:
         lam_f, act_f, side_f, it, done = bulk.phase1(
-            arr_hi.subset_inv, arr_hi.G, du_t, dl_t, arr_hi.is_eq.cpu(),
-            arr_hi.is_immutable.cpu(), lam.to(dtype), active, side,
+            arr_hi.subset_inv, arr_hi.G, du_t, dl_t, arr_hi.is_eq_host,
+            arr_hi.is_immutable_host, lam.to(dtype), active, side,
             max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol)
         final = DualState(lam_f, act_f, side_f, iters0 + it, done)
     else:

@@ -185,8 +185,8 @@ class SolverEngine:
         if not self.tier:
             return
         # kernel-side flags stay on the host: no device sync per launch
-        self._eq = torch.as_tensor(np.asarray(ldp.is_eq, bool))
-        self._immut = torch.as_tensor(np.asarray(ldp.is_immutable, bool))
+        self._eq = self.arrays.is_eq_host
+        self._immut = self.arrays.is_immutable_host
         self._has_eq = bool(self._eq.any())
         if self.path == "small":
             self._pd = polish.make_polish_data(ldp, subset_inv, self.device)
@@ -287,10 +287,11 @@ class SolverEngine:
         B, m = thetas.shape[0], self.ldp.m
         if warm is None:
             lam0 = torch.zeros((B, m), dtype=torch.float32, device=self.device)
-            act0 = arr.is_eq.expand(B, m)
+            act0 = arr.is_eq.expand(B, m).contiguous()
             side0 = torch.ones((B, m), dtype=torch.bool, device=self.device)
         else:
-            lam0, act0, side0 = (torch.as_tensor(w, device=self.device) for w in warm)
+            lam0, act0, side0 = (torch.as_tensor(w, device=self.device).contiguous()
+                                 for w in warm)
         du_t, dl_t = self._bounds32(thetas)
         lam, act, side, iters, _done = bulk.phase1(
             arr.subset_inv, arr.G, du_t, dl_t, self._eq, self._immut,

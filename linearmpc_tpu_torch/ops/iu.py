@@ -412,11 +412,9 @@ def _phase1_iu_cuda(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
     R = torch.empty((B, m, m), dtype=dtype, device=dev)
     work = torch.empty(1, dtype=torch.int32, device=dev)
     if B > 0:
-        fn = cuda_lib.load("iu").lmpc_iu
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+        fn = cuda_lib.function("iu", "lmpc_iu", _ARGTYPES)
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
+            stream = cuda_lib.stream(dev)
             err = fn(0 if dtype == torch.float32 else 1, m, B,
                      *(t.data_ptr() for t in ins), 0 if eq.dim() == 1 else m,
                      *(t.data_ptr() for t in ins2), R0_stride,

@@ -6,16 +6,18 @@ The TPU kernel works in double-single f32 (about 2^-48 relative) because
 the TPU has no f64; the H100 has hardware f64, so the port computes in
 native float64, which meets and beats that accuracy contract. The
 double-single modules ``ops/ds.py`` and ``ops/ds_polish.py`` are therefore
-not ported. The kernel is f64 flop-bound per lane (one thread per lane,
-O(m^2 + n(m + n + nth)) flops, run once per solve); it reads the small
-static matrices through the read-only cache and the subset table from
-global memory and L2.
+not ported. A launch is the latency of one lane's short chain of f64 dot
+products (O(m^2 + n(m + n + nth)) flops, run once per solve): a team of
+threads runs each lane, with the static arrays (``PolishData.packed``) and
+small subset tables staged in shared memory (see the header of
+``csrc/polish.cu``).
 
 ``polish`` is the counterpart of ``polish_pallas``: it returns float64
 ``U`` (B, n), ``lam`` (B, m), ``fval`` (B,) and ``bad`` (B,), the KKT
 residual of ``pallas_polish.py:241-254`` (inactive-row primal violation and
 removable-row sign violation, -3e38 for a lane with neither). On a CUDA
-tensor it launches the kernel or raises; on a CPU tensor it runs
+tensor it launches the kernel or raises (every input contiguous on the
+card; ``make_polish_data`` makes the statics so); on a CPU tensor it runs
 ``polish_plain``, the batched torch version.
 """
 
@@ -38,7 +40,9 @@ BIG = 3.0e38  # the -big of a lane with no candidate and no removable row
 
 
 class PolishData(NamedTuple):
-    """Static float64 inputs of the polish, on one device."""
+    """Static float64 inputs of the polish, on one device. The eleven float
+    arrays after ``subset`` are views into ``packed``, one contiguous buffer
+    that the kernel stages into shared memory in one copy."""
 
     subset: torch.Tensor   # (2^m, m, m) working-set inverses, bit i = row i
     G: torch.Tensor        # (m, m)
@@ -55,17 +59,25 @@ class PolishData(NamedTuple):
     is_immutable: torch.Tensor  # (m,) bool
     eq_mask: int               # is_eq as a bitmask (bit i = row i)
     immut_mask: int            # is_immutable as a bitmask
+    packed: torch.Tensor       # the float arrays in the kernel's order (PACKED)
+
+
+# the order of the statics in ``PolishData.packed`` (csrc/polish.cu::layout)
+PACKED = ("Dth", "du", "dl", "G", "HinvET", "Uth_off", "u_off", "H", "f", "f_theta")
 
 
 def make_polish_data(ldp: LDPData, subset_inv: np.ndarray, device) -> PolishData:
-    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, dtype=np.float64), device=device)
+    arrays = {k: np.ascontiguousarray(getattr(ldp, k), dtype=np.float64) for k in PACKED}
+    packed = torch.as_tensor(np.concatenate([a.ravel() for a in arrays.values()]), device=device)
+    views, o = {}, 0
+    for k, a in arrays.items():
+        views[k] = packed[o:o + a.size].view(a.shape)
+        o += a.size
     b = lambda a: torch.as_tensor(np.asarray(a, dtype=bool), device=device)
-    return PolishData(
-        t(subset_inv), t(ldp.G), t(ldp.Dth), t(ldp.du), t(ldp.dl), t(ldp.HinvET),
-        t(ldp.Uth_off), t(ldp.u_off), t(ldp.H), t(ldp.f), t(ldp.f_theta),
-        b(ldp.is_eq), b(ldp.is_immutable),
-        bitmask(ldp.is_eq), bitmask(ldp.is_immutable),
-    )
+    subset = torch.as_tensor(np.ascontiguousarray(subset_inv, dtype=np.float64), device=device)
+    return PolishData(subset=subset, **views, is_eq=b(ldp.is_eq),
+                      is_immutable=b(ldp.is_immutable), eq_mask=bitmask(ldp.is_eq),
+                      immut_mask=bitmask(ldp.is_immutable), packed=packed)
 
 
 def polish_plain(pd: PolishData, thetas, act, side):
@@ -91,7 +103,7 @@ def polish_plain(pd: PolishData, thetas, act, side):
     return U, lam, fval, torch.maximum(primal, sign)
 
 
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 18 + [ctypes.c_int] * 3
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3
              + [ctypes.c_uint] * 2 + [ctypes.c_void_p])
 
 
@@ -102,30 +114,25 @@ def _polish_cuda(pd: PolishData, thetas, act, side):
     dev = act.device
     if not 1 <= m <= MAX_M:
         raise ValueError(f"polish kernel takes 1 <= m <= {MAX_M}, got m={m}")
-    if thetas.dtype != torch.float64 or tuple(thetas.shape) != (B, nth):
+    if thetas.dtype != torch.float64 or thetas.shape != (B, nth):
         raise ValueError(f"thetas must be float64 ({B}, {nth})")
-    if act.dtype != torch.bool or side.dtype != torch.bool or tuple(side.shape) != (B, m):
+    if act.dtype != torch.bool or side.dtype != torch.bool or side.shape != (B, m):
         raise ValueError(f"act/side must be bool ({B}, {m})")
-    statics = pd[:11]
-    for t in (thetas, side, *statics):
-        if t.device != dev:
-            raise ValueError(f"polish inputs must all be on {dev}")
+    ins = (pd.subset, pd.packed, thetas, act, side)
+    for t in ins:
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"polish inputs must be contiguous on {dev}")
     U = torch.empty((B, n), dtype=torch.float64, device=dev)
     lam = torch.empty((B, m), dtype=torch.float64, device=dev)
     fval = torch.empty(B, dtype=torch.float64, device=dev)
     bad = torch.empty(B, dtype=torch.float64, device=dev)
     if B == 0:
         return U, lam, fval, bad
-    ins = [t.contiguous() for t in (*statics, thetas, act, side)]
-    lib = cuda_lib.load("polish")
-    fn = lib.lmpc_polish
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = cuda_lib.function("polish", "lmpc_polish", _ARGTYPES)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(m, *(t.data_ptr() for t in ins),
                  *(t.data_ptr() for t in (U, lam, fval, bad)),
-                 B, n, nth, pd.eq_mask, pd.immut_mask, stream)
+                 B, n, nth, pd.eq_mask, pd.immut_mask, cuda_lib.stream(dev))
     cuda_lib.check(err, "polish kernel launch")
     LAUNCHES += 1
     return U, lam, fval, bad

@@ -13,6 +13,7 @@ import torch
 
 import linearmpc_tpu as lmpc
 from linearmpc_tpu.ops import dual_active_set as jdas
+from linearmpc_tpu.ops.ldp import precompute_subset_inverses
 from linearmpc_tpu.ops.pallas_solver import phase1_pallas, phase1_pallas_while
 from linearmpc_tpu_torch.ops import bulk
 from linearmpc_tpu_torch.ops.dual_active_set import finish_from_state, to_device_arrays
@@ -154,3 +155,58 @@ def test_phase1_cpu_wrapper_runs_plain_without_launching():
                     torch.ones(16, m, dtype=torch.bool, device="meta"),
                     max_iter=30, primal_tol=PTOL, sign_tol=STOL)
 
+
+
+@pytest.mark.parametrize("case", [("invpend", None, None), ("nonlinear", None, None)])
+def test_finish_from_state_host_masks_match_jax(case, monkeypatch):
+    """finish_from_state hands K1 the host copies of the masks (no device
+    sync on the card) and still gives the JAX package's f64 continuation
+    from the same f32 bulk state; nonlinear has equality rows."""
+    mpc, prange = lmpc.mpc_examples(*case)
+    mpc.setup()
+    arr = mpc.engine.arrays
+    ldp = mpc.engine.ldp
+    B, m = 64, ldp.m
+    lo, hi = np.asarray(prange.lower()), np.asarray(prange.upper())
+    th = lo + (hi - lo) * np.random.default_rng(3).uniform(0.0, 1.0, (B, len(lo)))
+    subset = precompute_subset_inverses(ldp)
+    du_t = (ldp.du + th @ ldp.Dth.T).astype(np.float32)
+    dl_t = (ldp.dl + th @ ldp.Dth.T).astype(np.float32)
+    eq = torch.as_tensor(ldp.is_eq)
+    lam32, act32, side32, it32, _d = (a.numpy() for a in bulk.phase1_plain(
+        torch.as_tensor(subset).float(), torch.as_tensor(ldp.G).float(), torch.as_tensor(du_t),
+        torch.as_tensor(dl_t), eq, torch.as_tensor(ldp.is_immutable), torch.zeros((B, m)),
+        eq.expand(B, m), torch.ones((B, m), dtype=torch.bool), max_iter=2, primal_tol=PTOL,
+        sign_tol=STOL))
+    sol_j = jax.vmap(lambda t, l, a, s, i: jdas.finish_from_state(arr, t, l, a, s, i, max_iter=24))(
+        jnp.asarray(th), jnp.asarray(lam32.astype(np.float64)), jnp.asarray(act32),
+        jnp.asarray(side32), jnp.asarray(it32))
+    arr_t = to_device_arrays(ldp, torch.float64, "cpu", subset)
+    seen = []
+    phase1 = bulk.phase1
+    monkeypatch.setattr(bulk, "phase1", lambda *a, **k: seen.append(a[4:6]) or phase1(*a, **k))
+    sol_t = finish_from_state(arr_t, torch.as_tensor(th), torch.as_tensor(lam32),
+                              torch.as_tensor(act32), torch.as_tensor(side32),
+                              torch.as_tensor(it32), max_iter=24)
+    assert len(seen) == 1
+    assert seen[0][0] is arr_t.is_eq_host and seen[0][1] is arr_t.is_immutable_host
+    assert all(t.device.type == "cpu" for t in seen[0])
+    assert np.array_equal(arr_t.is_eq_host.numpy(), ldp.is_eq)
+    for name in ("active", "side", "iters", "status"):
+        assert np.array_equal(getattr(sol_t, name).numpy(), np.asarray(getattr(sol_j, name)))
+    assert np.max(np.abs(sol_t.lam.numpy() - np.asarray(sol_j.lam))) <= 1e-10
+    assert np.max(np.abs(sol_t.U.numpy() - np.asarray(sol_j.U))) <= 1e-10
+
+
+def test_row_bits_cached_until_modified():
+    """The kernels' eq/immut bit masks are computed once per host mask
+    tensor and again after an in-place change; a mask on another device
+    raises rather than sync."""
+    flags = torch.tensor([True, False, True, False, False])
+    assert bulk.row_bits(flags) == 0b101
+    assert flags._row_bits == (flags._version, 0b101)
+    assert bulk.row_bits(flags) == 0b101
+    flags[4] = True
+    assert bulk.row_bits(flags) == 0b10101
+    with pytest.raises(ValueError, match="host tensors"):
+        bulk.row_bits(flags.to("meta"))

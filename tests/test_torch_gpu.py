@@ -8,7 +8,10 @@ no JAX, so it also runs where JAX is not installed:
 (``--noconftest`` skips ``tests/conftest.py``, which sets JAX up.) Every
 kernel is built without FMA contraction and sums in its plain version's
 order, so kernel and plain version agree bit for bit: K1/K2 at invpend
-m = 5, K3 (``ops/iu.py``) at m = 48 and K4 (``ops/ciu.py``) at m = 64, cold
+m = 5 and at every team size and table placement they branch on (m = 4,
+5, 6, 8, 9, 10, equality rows), at ragged batch sizes, at the launches of
+a warm rollout step and of the f64 stragglers, and with a non-finite
+theta; K3 (``ops/iu.py``) at m = 48 and K4 (``ops/ciu.py``) at m = 64, cold
 in float32 and float64 and warm with the warm-ray retry in float32, then
 the two large-m tiers against the oracle. K3 and K4 are also held against
 their plain versions at ragged batch sizes with one shared entry inverse,
@@ -305,3 +308,148 @@ def test_default_setup_lands_on_cuda_f32():
     u = mpc.setup().compute_control([5.0, 5.0, 0.0, 0.0])
     assert mpc.engine.device.type == "cuda" and mpc.engine.dtype == torch.float32
     assert abs(u[0] - 1.7612519326) < 1e-6
+
+
+# K1 / K2 at every team size and table placement: (example, Np, Nc) -> m;
+# K1's team is 4 threads at m = 4, 8 at m = 5-8, 16 at m = 9-10, its table
+# in shared memory up to m = 6 in float32 (m = 5 in float64) and read
+# through L2 above; K2's team follows max(m, n)
+SMALL_CASES = {"invpend 50/4": ("invpend", 50, 4), "invpend": ("invpend", None, None),
+               "aircraft": ("aircraft", None, None), "nonlinear (eq rows)": ("nonlinear", None, None),
+               "invpend 50/8": ("invpend", 50, 8), "invpend 50/9": ("invpend", 50, 9),
+               "invpend 50/10": ("invpend", 50, 10)}
+
+
+def _small(case, B, seed):
+    """The small-m engine of an example on the card and B thetas over its
+    parameter range."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, prange = tmpc.mpc_examples(*case)
+    mpc.setup(device="cuda", dtype=torch.float32)
+    assert mpc.engine.path == "small"
+    lo, hi = prange.lower(), prange.upper()
+    th = lo + (hi - lo) * np.random.default_rng(seed).uniform(0.0, 1.0, (B, len(lo)))
+    return mpc, torch.as_tensor(th, device="cuda")
+
+
+def _k1_args(eng, th, dtype):
+    arr = eng.arrays if dtype == torch.float32 else eng.arrays_hi
+    th = th.to(dtype)
+    B, m = th.shape[0], eng.ldp.m
+    args = (arr.subset_inv, arr.G, arr.du + th @ arr.Dth.T, arr.dl + th @ arr.Dth.T,
+            eng._eq, eng._immut, torch.zeros((B, m), dtype=dtype, device="cuda"),
+            arr.is_eq.expand(B, m).contiguous(),
+            torch.ones((B, m), dtype=torch.bool, device="cuda"))
+    kw = (dict(max_iter=eng.bulk_cap, primal_tol=eng.primal_tol, sign_tol=eng.sign_tol)
+          if dtype == torch.float32 else dict(max_iter=24, primal_tol=1e-6, sign_tol=1e-11))
+    return args, kw
+
+
+def _k1_equal(args, kw):
+    before = bulk.LAUNCHES
+    out_k = bulk.phase1(*args, **kw)
+    out_p = bulk.phase1_plain(*args, **kw)
+    assert bulk.LAUNCHES == before + 1
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+    return out_k
+
+
+def _k2_equal(pd, th, act, side):
+    before = polish.LAUNCHES
+    out_k = polish.polish(pd, th, act, side)
+    out_p = polish.polish_plain(pd, th, act, side)
+    assert polish.LAUNCHES == before + 1
+    for a, b in zip(out_k, out_p):
+        assert torch.equal(a, b)
+
+
+def _record(module, name, run):
+    """The (args, kwargs) of every call of ``module.name`` while ``run()`` runs."""
+    calls, orig = [], getattr(module, name)
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    setattr(module, name, rec)
+    try:
+        run()
+    finally:
+        setattr(module, name, orig)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(SMALL_CASES))
+def test_small_kernels_team_sizes_match_plain(case, dtype):
+    """K1 cold at 4097 lanes, then K2 on its working sets, equal entry for
+    entry to their plain versions."""
+    mpc, th = _small(SMALL_CASES[case], 4097, seed=21)
+    eng = mpc.engine
+    args, kw = _k1_args(eng, th, dtype)
+    out = _k1_equal(args, kw)
+    _k2_equal(eng._pd, th, out[1], out[2])
+
+
+@pytest.mark.parametrize("B", [1, 17, 4097])
+def test_small_kernels_ragged_batch_match_plain(B):
+    """A batch of one lane, one lane more than a K2 block holds (16 at
+    invpend) and one more than 4096."""
+    mpc, th = _small(SMALL_CASES["invpend"], B, seed=B)
+    eng = mpc.engine
+    out = _k1_equal(*_k1_args(eng, th, torch.float32))
+    _k2_equal(eng._pd, th, out[1], out[2])
+
+
+def test_small_kernels_warm_rollout_step_match_plain():
+    """The K1 and K2 launches of the 11th step of a 4096-lane rollout."""
+    mpc, _th = _small(SMALL_CASES["invpend"], 1, seed=0)
+    x0s = np.random.default_rng(22).uniform(-0.5, 0.5, (4096, 4))
+    run = lambda: tmpc.build_rollout(mpc)(x0s, np.zeros((4096, 2)), None, N=11)
+    calls_p = []
+    calls_b = _record(bulk, "phase1", lambda: calls_p.extend(_record(polish, "polish", run)))
+    assert len(calls_b) == len(calls_p) == 11
+    args, kw = calls_b[10]
+    _k1_equal(args, kw)
+    _k2_equal(*calls_p[10][0])
+
+
+def test_phase1_kernel_f64_stragglers_match_plain():
+    """K1's float64 launch on the tier's 256 worst lanes (finish_from_state),
+    recorded from a cold batch."""
+    mpc, th = _small(SMALL_CASES["invpend"], 4096, seed=23)
+    calls = _record(bulk, "phase1", lambda: mpc.engine.solve_batch(th))
+    args, kw = next(c for c in calls if c[0][2].dtype == torch.float64)
+    assert args[2].shape[0] == 256
+    _k1_equal(args, kw)
+
+
+def test_small_kernels_nonfinite_theta_lane_match_plain():
+    """A lane whose theta holds a NaN and one holding an inf run on as the
+    plain versions do (NaN where they give NaN), beside finite lanes."""
+    mpc, th = _small(SMALL_CASES["invpend"], 64, seed=24)
+    eng = mpc.engine
+    th[3, 1] = float("nan")
+    th[7, 0] = float("inf")
+    args, kw = _k1_args(eng, th, torch.float32)
+    out_k = bulk.phase1(*args, **kw)
+    _same(out_k, bulk.phase1_plain(*args, **kw))
+    _same(polish.polish(eng._pd, th, out_k[1], out_k[2]),
+          polish.polish_plain(eng._pd, th, out_k[1], out_k[2]))
+
+
+def test_small_rollout_step_makes_no_host_sync():
+    """One warm step of the small-m rollout (K1 then K2) under the sync
+    debug mode "error": no device-to-host copy or synchronize."""
+    mpc, th = _small(SMALL_CASES["invpend"], 512, seed=25)
+    eng = mpc.engine
+    sol = eng.solve_batch(th)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = eng.fused_rollout_solve(th, sol.lam, sol.active, sol.side)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bool((out[5] == 1).all())
