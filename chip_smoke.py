@@ -28,9 +28,24 @@ wide-team paths (K3 f64 at m=160 with R in global memory, K4 f64 at s=96)
 does the same for the K1/K2 launches of the small-m path (the cold tier's
 K1, f64 stragglers and K2; a warm rollout step's K1 and K2), then runs one
 rollout step under ``torch.cuda.set_sync_debug_mode("error")`` and counts
-the syncs of one cold batch [17]. Every comparison of a kernel with its
-plain version requires every lane to agree and the outputs to be equal bit
-for bit. Every phase asserts; any failure exits non-zero.
+the syncs of one cold batch [17]. Then the two paths of hybrid and
+prioritized MPC, each with the counts set to 0 just before its run:
+
+* hybrid (the satellite at its reference default, m = 60, 40 binary rows,
+  B = 512, through setup() with no device): the incremental node-frontier
+  branch-and-bound on K3's resumable entry, held against the CPU float64
+  frontier, with its rounds, syncs, solves/s and single-solve latency
+  [18]; the closed-loop satellite on the card [19];
+* the lexicographic hierarchy (the two-level problem of the JAX bench,
+  m = 7, B = 8192): each level on K1's float64 instantiation, held
+  against the CPU float64 ``LexSolver`` [20];
+
+then replays the hybrid path's K3 step launches (first, mid-search, last
+round) against the plain step [21], and checks that a float32 hybrid
+problem past the frontier's routing rule raises on the card [22]. Every
+comparison of a kernel with its plain version requires every lane to agree
+and the outputs to be equal bit for bit. Every phase asserts; any failure
+exits non-zero.
 Without CUDA it exits 1 and prints no result. The second-to-last line is
 a JSON object with, per kernel, its launches on its path's run (and on
 each path), its error against the plain version, its call and device
@@ -46,6 +61,7 @@ import subprocess
 import sys
 import time
 import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -64,9 +80,12 @@ CASES = (("invpend", None, None), ("aircraft", None, None), ("invpend", 50, 10))
 B_LARGE = 8192              # cold large-m batches (bench.py:313, :485)
 B_ROLL_IU, N_ROLL_IU = 4096, 500   # IU rollout (bench.py:364)
 B_ROLL_C, N_ROLL_C = 2048, 300     # compact rollout (bench.py:495)
+LANE_CASE = Path(__file__).resolve().parent / "tests" / "data" / "compact_lane1929.npz"
+B_HYB, HYB_REF = 512, 32  # hybrid satellite batch (bench.py:615), lanes vs CPU f64
+B_LEX, LEX_REF = 8192, 256  # lexicographic batch (bench.py:587), lanes vs CPU f64
 KERNELS = ("bulk", "polish", "iu", "ciu")
 COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu)  # each module's LAUNCHES
-PATHS = ("small", "iu", "compact")
+PATHS = ("small", "iu", "compact", "hybrid", "lex")
 # the bound of a kernel: its bytes at HBM3's rate and its operations at the
 # card's highest rate for their type (H100 SXM, NVIDIA's data sheet: float32
 # outside the tensor cores, float64 on them)
@@ -167,6 +186,7 @@ def oracle_error(ldp, thetas, U, status=None):
 def reset_counts():
     for mod in COUNTED.values():
         mod.LAUNCHES = 0
+    iu.STEP_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -615,6 +635,271 @@ def rollout_check(label, mpc, k_hi, rng, B, N, ref_lanes):
     return rollout, x0s, rs, t_first
 
 
+def host_ms(fn, reps: int) -> list:
+    """Host-clock ms of each of ``reps`` calls of ``fn``, each ending in a
+    synchronize (for paths that sync the host themselves)."""
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def binary_offsets(mpc, U, lanes) -> float:
+    """Max distance of a binary control to its nearer finite bound over
+    the given lanes and every move of the horizon that is binary."""
+    nu = mpc.model.nu
+    U = U[lanes].reshape(int(lanes.sum()), -1, nu)
+    n_bin = U.shape[1] if mpc.Nc_binary < 0 else mpc.Nc_binary
+    worst = 0.0
+    for b in mpc.binary_controls:
+        u = U[:, :n_bin, b]
+        off = np.full(u.shape, np.inf)
+        for bound in (mpc.umin[b], mpc.umax[b]):
+            if np.isfinite(bound):
+                off = np.minimum(off, np.abs(u - bound))
+        worst = max(worst, float(off.max()) if off.size else 0.0)
+    return worst
+
+
+def count_syncs(fn) -> int:
+    """Synchronizing calls that ``fn`` makes, from the sync debug mode
+    "warn" (which, by its own account, may miss some)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def step_bound(args, st) -> tuple[float, str]:
+    """K3 step's bound on this run's data: the inputs (the entry state but
+    its iteration count) and the new state once, and per lane-iteration the
+    products of ``gi_bound``; pend moves as int32 in the kernel."""
+    m = args[2].shape[1]
+    w = st.act.sum(1).double()
+    flops = float((st.iters.double() * (2 * (3 * m * w + m * w) + 4 * w * w)).sum())
+    entry = [t for f, t in zip(iu.IUState._fields, args[6]) if f != "iters"]
+    moved = sum(nbytes(t) // (2 if t.dtype == torch.int64 else 1)
+                for t in (*args[:6], *entry, *st))
+    return bound(moved, flops, args[2].dtype)
+
+
+def compare_step(label, args, kw):
+    """One recorded K3 step launch against ``step_iu_plain`` on the same
+    inputs: no lane may differ anywhere (NaN where both are); returns the
+    kernel's new state and max |dlam|."""
+    st_k, _ = iu.step_iu(*args, **kw)
+    st_p, _ = iu.step_iu_plain(*args, **kw)
+    torch.cuda.synchronize()
+    n_bad, n_float = equal_outputs(tuple(st_k), tuple(st_p))
+    err = float(torch.nan_to_num((st_k.lam - st_p.lam).abs(), nan=0.0).max())
+    entry = args[6]
+    log(f"  {label}: B={args[2].shape[0]}, entering with {int((entry.pend >= 0).sum())} pending "
+        f"rows, {int(entry.done.sum())} done, {int(args[4].sum(1).max())} eq rows at most; "
+        f"disagreeing lanes {n_bad}, unequal float entries {n_float} (0 required), iterations "
+        f"mean {st_k.iters.double().mean().item():.3f} max {int(st_k.iters.max())}")
+    check(n_bad == 0, f"{label}: {n_bad} lanes differ from step_iu_plain")
+    return st_k, err
+
+
+def lex_mpc(device, dtype=None):
+    """The two-level lexicographic problem of bench.py:578-585 (m = 7):
+    x >= 1 at priority 0 against x <= -1 at priority 1."""
+    mpc = L.MPC.from_discrete([[1.0]], [[1.0]], C=[[1.0]], Np=3, Nc=3)
+    mpc.set_bounds(umin=[-5.0], umax=[5.0])
+    mpc.set_objective(Q=[1e-6], R=[1e-6])
+    mpc.add_constraint(Ax=[[1.0]], lb=[1.0], ks=[2, 3], soft=True, prio=0)
+    mpc.add_constraint(Ax=[[1.0]], ub=[-1.0], ks=[2, 3], soft=True, prio=1)
+    mpc.settings.hierarchy = "lexicographic"
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def hybrid_lex_phases(dev, by_path: dict) -> tuple[dict, float, dict]:
+    """Phases [18]-[22]: the hybrid and lexicographic paths on the card,
+    each with the counts set to 0 just before its run and read into
+    ``by_path`` just after; returns the K3 step launch rows of [21], their
+    max |dlam| against the plain step, and the K1 rows of the
+    lexicographic levels' launches."""
+    # [18] hybrid MPC: the satellite at its reference default (Np = Nc = 20,
+    # m = 60, 40 binary rows), B = 512, theta in +-1 (bench.py:605-643),
+    # through setup() with no device -- K3's launches counted here
+    mpc_h, _ = L.mpc_examples("satellite")
+    mpc_h.setup()
+    eng_h = mpc_h.engine
+    check(eng_h.device.type == "cuda" and eng_h.dtype == torch.float32
+          and eng_h.bnb_mode == "inc", f"satellite engine: {eng_h.device} {eng_h.dtype} "
+          f"{getattr(eng_h, 'bnb_mode', None)}")
+    n_bin = int(eng_h.ldp.is_binary.sum())
+    log(f"[18] hybrid satellite m={eng_h.ldp.m}, {n_bin} binary rows, B={B_HYB}: the "
+        f"incremental frontier, {eng_h.stack_cap} stack slots, node cap {eng_h.node_cap}")
+    th_h = np.random.default_rng(18).uniform(-1.0, 1.0, (B_HYB, eng_h.ldp.n_theta))
+    th_h_dev = torch.as_tensor(th_h, device=dev)
+    reset_counts()
+    hyb = []
+    step_calls = record_calls(iu, "step_iu", lambda: hyb.append(eng_h.solve_batch(th_h_dev)))
+    torch.cuda.synchronize()
+    by_path["hybrid"] = read_counts()
+    n_step = iu.STEP_LAUNCHES
+    sol_h = hyb[0]
+    check(sol_h.U.is_cuda, "hybrid: the solution is not on the card")
+    st_h = sol_h.status.cpu().numpy()
+    U_h = sol_h.U.double().cpu().numpy()
+    found = (st_h == 1) | (st_h == 2)
+    off = binary_offsets(mpc_h, U_h, found)
+    ref_h = L.mpc_examples("satellite")[0].setup(device="cpu").engine.solve_batch(th_h[:HYB_REF])
+    ok_ref = ref_h.status.numpy() == 1
+    f_h, f_ref = sol_h.fval[:HYB_REF].double().cpu().numpy(), ref_h.fval.numpy()
+    rel_f = float((np.abs(f_h - f_ref) / (1.0 + np.abs(f_ref)))[ok_ref].max()) if ok_ref.any() else 0.0
+    same_ok = bool(np.array_equal(st_h[:HYB_REF] == 1, ok_ref))
+    log(f"  status 1 {np.mean(st_h == 1):.6f}, 2 {np.mean(st_h == 2):.6f}, -2 "
+        f"{np.mean(st_h == -2):.6f}, -1 {int(np.sum(st_h == -1))} lanes; K3 step launches "
+        f"{n_step} (K3 in all {by_path['hybrid']['iu']}); binaries off their bound by "
+        f"{off:.3e} at most; first {HYB_REF} lanes vs the CPU float64 frontier: status 1 on "
+        f"the same lanes {same_ok}, max rel |dfval| {rel_f:.3e}")
+    check(n_step > 0, "hybrid: K3's step entry was never launched")
+    check(bool(np.all(st_h != -1)), "hybrid: a lane with status -1")
+    check(bool(np.all(np.isfinite(U_h[found]))), "hybrid: non-finite controls")
+    check(off <= 1e-5, f"hybrid: a binary control {off:.3e} off its bound")
+    check(same_ok, "hybrid: status 1 on other lanes than the CPU float64 frontier")
+    check(rel_f <= 1e-6, f"hybrid fval vs CPU f64: {rel_f:.3e} > 1e-6")
+    plan = iu.last_plan()
+    log(f"  K3 step launch plan at m={eng_h.ldp.m}, B={B_HYB}: {plan}")
+    check(plan["team"] == 32, f"K3 step at m=60 took the {plan['team']}-thread team")
+    # rounds, nodes and the syncs of one round, from the frontier run round by round
+    fr = eng_h.inc_frontier()
+    held = [fr.init(th_h_dev), True]
+    n_sync_round = None
+
+    def one_round():  # a round and the loop test that follows it
+        held[0] = fr.round(held[0])
+        held[1] = fr.running(held[0])
+
+    while held[1]:
+        if fr.rounds == 10:
+            n_sync_round = count_syncs(one_round)
+        else:
+            one_round()
+    s = held[0]
+    sol_r = fr.finish(s)
+    check(torch.equal(sol_r.status, sol_h.status), "hybrid: round-by-round run differs")
+    hyb_ms = host_ms(lambda: eng_h.solve_batch(th_h_dev), 3)
+    lat_ms = host_ms(lambda: eng_h.solve(th_h[0]), 5)
+    prof_h = device_profile(f"hybrid batch of {B_HYB}",
+                            lambda: eng_h.solve_batch(th_h_dev), 1, min(hyb_ms))
+    log(f"  timings on {card_line()}: batch {', '.join(f'{t:.1f}' for t in hyb_ms)} ms = "
+        f"{B_HYB / min(hyb_ms) * 1e3:,.0f} B&B solves/s (best); single solve at B=1 "
+        f"{', '.join(f'{t:.1f}' for t in lat_ms)} ms; solved {np.mean(st_h == 1):.6f}, mean "
+        f"iterations {sol_h.iters.double().mean().item():.1f}, mean nodes "
+        f"{s.nodes.double().mean().item():.1f}, {fr.rounds} rounds a batch, "
+        f"{n_step / fr.rounds:.2f} K3 step launches a round, {n_sync_round} synchronizing "
+        f"calls in one round and its loop test")
+    log(prof_h)
+
+    # [19] the closed-loop satellite (tests/test_hybrid.py:11-30) on the card
+    N_CL = 20
+    mpc_cl, _ = L.mpc_examples("satellite", 20)
+    mpc_cl.settings.reference_preview = True
+    mpc_cl.setup()
+    rs_cl = np.vstack([np.hstack([np.zeros((1, 5)), 0.5 * np.ones((1, N_CL - 5))]),
+                       np.zeros((2, N_CL))])
+    F_cl, G_cl = np.asarray(mpc_cl.model.F), np.asarray(mpc_cl.model.G)
+    t0 = time.perf_counter()
+    sim = L.simulate_kw(mpc_cl, x0=np.zeros(3), N=N_CL, r=rs_cl,
+                        dynamics=lambda x, u, d: F_cl @ x + G_cl @ np.atleast_1d(u))
+    t_cl = time.perf_counter() - t0
+    us = np.asarray(sim.us)
+    on = all(np.all(np.isclose(us[b], mpc_cl.umin[b], atol=1e-5)
+                    | np.isclose(us[b], mpc_cl.umax[b], atol=1e-5))
+             for b in mpc_cl.binary_controls)
+    y_end = float(sim.ys[0, -1])
+    log(f"[19] closed-loop satellite, {N_CL} steps with reference preview on "
+        f"{mpc_cl.engine.device}: y0 at the end {y_end:.6f} (0.5 within 1e-3), binaries on "
+        f"their bounds {on}, {t_cl:.2f} s ({1e3 * t_cl / N_CL:.1f} ms a step)")
+    check(mpc_cl.engine.device.type == "cuda", "closed loop: not on the card")
+    check(abs(y_end - 0.5) < 1e-3, f"closed loop: y0 ends at {y_end}")
+    check(on, "closed loop: a binary control off its bounds")
+
+    # [20] the lexicographic hierarchy (bench.py:575-602): K1's float64
+    # instantiation for each level -- K1's launches counted here
+    mpc_x = lex_mpc(None)
+    eng_x = mpc_x.engine
+    check(eng_x.device.type == "cuda" and eng_x.path == "lex" and eng_x.ldp.m <= bulk.MAX_M,
+          f"lex engine: {eng_x.device} {eng_x.path} m={eng_x.ldp.m}")
+    th_x = np.random.default_rng(20).uniform(-2.0, 2.0, (B_LEX, eng_x.ldp.n_theta))
+    th_x_dev = torch.as_tensor(th_x, device=dev)
+    reset_counts()
+    sol_x = eng_x.solve_batch(th_x_dev)
+    torch.cuda.synchronize()
+    by_path["lex"] = read_counts()
+    ref_x = lex_mpc("cpu").engine.solve_batch(th_x[:LEX_REF])
+    dU_x = (sol_x.U[:LEX_REF].cpu() - ref_x.U).abs().max().item()
+    conv_x = (sol_x.status == 1).double().mean().item()
+    lex_ms = cuda_ms(lambda: eng_x.solve_batch(th_x_dev), 10)
+    prof_x = device_profile(f"lex batch of {B_LEX}",
+                            lambda: [eng_x.solve_batch(th_x_dev) for _ in range(3)], 3, lex_ms)
+    log(f"[20] lexicographic, {len(eng_x.lex.levels)} levels, m={eng_x.ldp.m}, B={B_LEX}: "
+        f"status 1 {conv_x:.6f}, mean iterations {sol_x.iters.double().mean().item():.2f}, "
+        f"K1 f64 launches {by_path['lex']['bulk']}; first {LEX_REF} lanes vs the CPU float64 "
+        f"LexSolver: max |dU| {dU_x:.3e}, statuses equal "
+        f"{torch.equal(sol_x.status[:LEX_REF].cpu(), ref_x.status)}; {lex_ms:.4f} ms a batch "
+        f"= {B_LEX / lex_ms * 1e3:,.0f} solves/s on {card_line()}")
+    log(prof_x)
+    log("    the lexicographic path's K1 f64 launches, replayed: vs phase1_plain, call / "
+        "device / plain time, bound")
+    lex_calls = record_calls(bulk, "phase1", lambda: eng_x.solve_batch(th_x_dev))
+    lex_rows = replay_small({f"K1 lexicographic level {i + 1} f64 B={B_LEX}": (bulk.phase1, a, k)
+                             for i, (a, k) in enumerate(lex_calls)})["K1"]
+    check(sol_x.U.is_cuda and sol_x.U.dtype == torch.float64, "lex: not float64 on the card")
+    check(conv_x == 1.0, f"lex: status 1 on {conv_x} of the lanes")
+    check(dU_x <= 1e-9, f"lex U vs CPU f64: {dU_x:.3e} > 1e-9")
+    check(by_path["lex"]["bulk"] == len(eng_x.lex.levels),
+          f"lex: {by_path['lex']['bulk']} K1 launches for {len(eng_x.lex.levels)} levels")
+
+    # [21] the K3 step launches of [18], replayed alone: the first round, a
+    # mid-search round with pending rows and branched eq rows, the last
+    log("[21] K3 step launches of the hybrid path: vs step_iu_plain, call / device / plain "
+        "time, bound")
+    n_eq = int(eng_h.ldp.is_eq.sum())
+    mid = next((i for i, (a, _k) in enumerate(step_calls)
+                if int((a[6].pend >= 0).sum()) > 0 and int(a[4].sum(1).max()) > n_eq), None)
+    check(mid is not None, "hybrid: no step launch entered with pending rows and branched eq")
+    step_rows, k3_step_err = {}, 0.0
+    for label, i in (("first round", 0), (f"round {mid + 1} (mid-search)", mid),
+                     (f"round {len(step_calls)} (last)", len(step_calls) - 1)):
+        a, k = step_calls[i]
+        st_k, err = compare_step(f"K3 step, {label}", a, k)
+        k3_step_err = max(k3_step_err, err)
+        ms = cuda_ms(lambda: iu.step_iu(*a, **k), 20)
+        dev_ms = kernel_device_ms(lambda: [iu.step_iu(*a, **k) for _ in range(5)], "iu_kernel")
+        ms_p = cuda_ms(lambda: iu.step_iu_plain(*a, **k), 1, warmup=1)
+        b_ms, b_by = step_bound(a, st_k)
+        log(f"    call {ms:.4f} ms, device {fmt_ms(dev_ms)}, plain {ms_p:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        step_rows[f"step K=8 m={eng_h.ldp.m} B={B_HYB}, {label}"] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+            launches_per_batch=n_step)
+
+    # [22] float32 hybrid at m >= 67 is not ported: the card's engine raises
+    mpc_cx, _ = L.mpc_examples("invpend_contact", 4, 4)
+    try:
+        mpc_cx.setup()
+        fail("invpend_contact (m = 88) float32 hybrid did not raise")
+    except NotImplementedError as e:
+        log(f"[22] invpend_contact Np=4 float32 hybrid on the card raises "
+            f"NotImplementedError: {e}")
+        check("m=88" in str(e) and "item 6b" in str(e),
+              "the m >= 67 raise does not name m = 88 and the ROADMAP item")
+    return step_rows, k3_step_err, lex_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -877,6 +1162,17 @@ def main() -> int:
     check(bool((sol.status != -1).all()), "compact tier: a lane with status -1")
     check(e <= 1e-9, f"compact tier error {e:.3e} > 1e-9")
     check(wrong == 0, f"compact tier: {wrong} statuses contradict the oracle")
+    # a lane of another draw whose float64 guard and first ladder pass fail
+    # (the last through an overflowed inverse): it must end -3 with finite
+    # controls, as the JAX package's guard returns it
+    th_l = torch.as_tensor(np.load(LANE_CASE)["theta"][None], device=dev)
+    sol_l = eng_c.solve_batch(th_l)
+    fin_l = bool(torch.isfinite(sol_l.U).all())
+    log(f"  the lane of tests/data/{LANE_CASE.name} alone: status {int(sol_l.status[0])}, "
+        f"controls finite {fin_l}, guard {eng_c.stats['guard']} ladder "
+        f"{eng_c.stats['ladder']} lanes, {int(sol_l.iters[0])} iterations")
+    check(int(sol_l.status[0]) == -3 and fin_l,
+          f"the {LANE_CASE.name} lane: status {int(sol_l.status[0])}, finite controls {fin_l}")
     roll_c, x0_c, rs_c, _ = rollout_check("[13] compact rollout", mpc_c, 32, rng,
                                           B_ROLL_C, N_ROLL_C, 0)
     by_path["compact"] = read_counts()
@@ -962,6 +1258,8 @@ def main() -> int:
     log(f"    rollout step under set_sync_debug_mode('error'): no sync; one cold batch of "
         f"{B_COLD} under 'warn': {n_sync} synchronizing calls")
 
+    step_rows, k3_step_err, lex_rows = hybrid_lex_phases(dev, by_path)
+
     # the counts of each kernel on each path's run
     per_path = lambda k: {p: by_path[p][k] for p in PATHS}
     none = "none: no single PyTorch call computes an early-exit active-set iteration"
@@ -973,7 +1271,7 @@ def main() -> int:
          "launches": launches["bulk"], "launches_by_path": per_path("bulk"),
          "max_abs_err": k1_err, "ms": ms_k1, "device_ms": dev_k1, "plain_ms": ms_k1p,
          "bound_ms": b_k1[0], "bound_by": b_k1[1], "library_ms": None,
-         "launch_shapes": small_rows["K1"]},
+         "launch_shapes": {**small_rows["K1"], **lex_rows}},
         {"name": "K2 polish", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/polish.cu",
          "replaces": "linearmpc_tpu/ops/pallas_polish.py:144",
@@ -985,8 +1283,9 @@ def main() -> int:
          "source": "linearmpc_tpu_torch/csrc/iu.cu",
          "replaces": "linearmpc_tpu/ops/pallas_iu.py:107",
          "launches": launches["iu"], "launches_by_path": per_path("iu"),
-         "max_abs_err": k3_err, "ms": ms_k3, "device_ms": dev_k3, "plain_ms": ms_k3p,
-         "bound_ms": k3_bound[0], "bound_by": k3_bound[1], "library_ms": None},
+         "max_abs_err": max(k3_err, k3_step_err), "ms": ms_k3, "device_ms": dev_k3,
+         "plain_ms": ms_k3p, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "library_ms": None, "launch_shapes": step_rows},
         {"name": "K4 compact GI", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/ciu.cu",
          "replaces": "linearmpc_tpu/ops/pallas_ciu.py:113",

@@ -365,6 +365,16 @@ struct Args {
   int max_iter;
   T ptol, stol, gtol, big;
   int retry;
+  // K3's resumable entry (null elsewhere): the pending candidate row (-1
+  // none) and its side, done and infeas of each lane come in and the first
+  // two go out; lam0 is taken as it is (a pending row's partial multiplier
+  // sits on an inactive row), and a lane that enters done runs no iteration
+  const int32_t* pend0;
+  const uint8_t* pside0;
+  const uint8_t* done0;
+  const uint8_t* infeas0;
+  int32_t* pend;
+  uint8_t* pside;
   // set by launch()
   int inv_in_smem;
   int g_staged;  // 0: G and G_solve read through L2, 1: G in shared memory, 2: both
@@ -372,6 +382,14 @@ struct Args {
 };
 
 __host__ __device__ __forceinline__ size_t up16(size_t x) { return (x + 15) & ~size_t(15); }
+
+// What the last launch on this host thread chose: threads a lane (32 or
+// kWide), lanes a block, blocks, the matrices staged in shared memory, the
+// inverse in shared memory, and dynamic shared memory bytes a block.
+struct Plan {
+  int team, lanes, blocks, g_staged, inv_in_smem, smem;
+};
+inline thread_local Plan last_plan{};
 
 // Shared-memory bytes of one lane, in the order lane() carves them: 9 row
 // vectors and 5 inverse-space vectors, the inverse where it lives there
@@ -391,7 +409,10 @@ __host__ __device__ __forceinline__ size_t lane_bytes(int m, int s, bool inv_in_
 // retry != 0, a lane flagged from its warm start is reset to a cold start
 // (empty set, identity inverse, every slot free) and every lane not done
 // runs up to max_iter more iterations (pallas_iu.py:509-523,
-// pallas_ciu.py:446-462).
+// pallas_ciu.py:446-462). K3's resumable entry (pend0 set) continues a lane
+// from its full carried state for max_iter more iterations at most, as one
+// call of the Pallas stepper (pallas_iu.py:393-451): no retry, a done lane
+// untouched, infeas sticky.
 //
 // Per iteration: lam* = inv @ rhs; a blocking step when a removable row's
 // multiplier has the wrong sign; otherwise the GI step for the most
@@ -476,6 +497,7 @@ __device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const
   const int ld = a.inv_in_smem ? s + 1 : s;
   const T tiny = T(1e-30), big = a.big;
 
+  const bool resume = a.pend0 != nullptr;
   const int inv0_nonfinite =
       copy_inv<T, false>(R, ld, const_cast<T*>(a.inv0 + b * a.inv0_stride), s, tid, NT);
   // the lane's rows: kRows rows' loads in flight before their stores
@@ -504,7 +526,7 @@ __device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const
         dl[i] = r_dl[r];
         act[i] = r_a[r] != 0;
         side[i] = r_s[r] != 0;
-        lam[i] = r_a[r] ? r_l0[r] : T(0);
+        lam[i] = (r_a[r] || resume) ? r_l0[r] : T(0);
         eq[i] = r_e[r] != 0;
         immut[i] = r_im[r] != 0;
         nact += r_a[r] != 0;
@@ -530,6 +552,12 @@ __device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const
   dense = team_any<NT>(inv0_nonfinite);
   int ovf = kSlots && nact > s;  // the entry working set does not fit the slots
   int done = ovf, infeas = 0, iters = 0, pend = -1, pend_side = 1;
+  if (resume) {
+    pend = a.pend0[b];
+    pend_side = a.pside0[b] != 0;
+    done = a.done0[b] != 0;
+    infeas = a.infeas0[b] != 0;
+  }
 
   for (int phase = 0; phase < (a.retry ? 2 : 1); ++phase) {
     if (phase == 1 && infeas) {
@@ -822,6 +850,10 @@ __device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const
     a.done[b] = done;
     a.infeas[b] = infeas;
     if constexpr (kSlots) a.ovf[b] = ovf;
+    if (resume) {
+      a.pend[b] = pend;
+      a.pside[b] = pend_side;
+    }
   }
   team_sync<NT>();
 }
@@ -920,6 +952,7 @@ cudaError_t launch_team(void (*kernel)(Args<T>), Args<T> a, cudaStream_t stream)
   const int blocks = std::min((a.B + lanes - 1) / lanes, per_sm * nsm);
   e = cudaMemsetAsync(a.work, 0, sizeof(int), stream);
   if (e != cudaSuccess) return e;
+  last_plan = Plan{NT, lanes, blocks, a.g_staged, a.inv_in_smem, static_cast<int>(smem)};
   kernel<<<blocks, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }

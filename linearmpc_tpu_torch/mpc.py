@@ -109,8 +109,10 @@ class MPC:
             primal_tol=float(opts.get("primal_tol", 1e-6)),
             sign_tol=float(opts.get("dual_tol", 1e-12)),
             has_binaries=self.mpQP.has_binaries,
+            bnb_node_limit=int(opts.get("bnb_node_limit", 4096)),
             symmetric=self.mpQP.is_symmetric,
             lexicographic=lex,
+            soft_weight=self.settings.soft_weight,
         )
         self.mpqp_issetup = True
         return self

@@ -1,0 +1,580 @@
+"""Batched node-frontier branch-and-bound for hybrid MPC.
+
+Port of ``linearmpc_tpu/ops/bnb_frontier.py`` (``FrontierState``,
+``make_xla_relax``, ``make_pallas_relax`` as ``make_kernel_relax``,
+``solve_bnb_frontier``, ``IncState``, ``solve_bnb_frontier_inc`` as
+``IncFrontier``, ``_refined_polish`` as ``refined_polish``;
+``:52-818``). Every lane keeps its own depth-first node stack; a round
+advances every lane at once:
+
+* ``solve_bnb_frontier`` pops one node per lane and solves the whole
+  frontier of node relaxations as one batched dual active-set solve (the
+  ``relax`` of ``make_xla_relax``: the float64 GI loop ``iu.iterate_iu``
+  with a per-lane equality mask, or the masked-Cholesky loop with the
+  full-row feasibility check; or ``make_kernel_relax``, a cold K3 launch),
+  then branches, prunes and updates incumbents. Child nodes warm-start
+  from the parent's multipliers and working set.
+* ``IncFrontier`` keeps the GI solver state (multipliers, working set,
+  pending candidate, carried inverse R) across rounds: each round runs
+  the stepper's K iterations of every lane through K3's resumable
+  entry (``iu.step_iu``, the kernel on CUDA), then a management step
+  branches or prunes the lanes whose relaxation converged. At a branch the
+  near child continues the parent's state in place (only the branched row
+  clamps); a backtrack pop restarts from the root relaxation's snapshot.
+  This is the engine's float32 hybrid path.
+
+Management runs in the engine dtype, in float32 under the engine's
+``full_f32`` (the JAX package's ``Precision.HIGHEST``). The status rules
+are the JAX package's (``:391-403``, ``:754-778``). Deliberate differences:
+lanes without a node are not re-solved (the JAX relax solves every lane
+and discards those); the pops that discard nodes whose bound reaches the
+incumbent (``prune_tops``) are one count per lane, not a loop with a host
+sync per pop; the state is batch-major with ``(pend, pend_side)`` in place
+of a signed one-hot; no batch padding to 128 lanes (the kernels take any
+batch). The only host sync of an incremental round is its loop condition.
+
+The final incumbent is re-solved in float64 from its working set, so
+branching in float32 costs accuracy only in which near-tied node wins (an
+incumbent of equal value may differ in U), never in the returned controls.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import torch
+
+from . import iu
+from .bnb import BIG, BIN_TOL
+from .dual_active_set import (
+    LDPArrays,
+    Solution,
+    _active_set_loop,
+    _primal_feasible,
+    polish_solution,
+)
+
+
+class FrontierState(NamedTuple):
+    """The pop-per-round frontier's state (batch-major)."""
+
+    stack_fixed: torch.Tensor  # (B, cap, m) bool: binary rows fixed at a bound
+    stack_side: torch.Tensor   # (B, cap, m) bool: which bound (True = upper)
+    stack_lam: torch.Tensor    # (B, cap, m) warm-start multipliers
+    stack_act: torch.Tensor    # (B, cap, m) bool warm-start working set
+    stack_ws: torch.Tensor     # (B, cap, m) bool warm-start working-set sides
+    stack_bound: torch.Tensor  # (B, cap) parent relaxation value (lower bound)
+    top: torch.Tensor          # (B,) int64
+    inc_fval: torch.Tensor     # (B,)
+    inc_lam: torch.Tensor      # (B, m)
+    inc_active: torch.Tensor   # (B, m) bool
+    inc_side: torch.Tensor     # (B, m) bool
+    inc_found: torch.Tensor    # (B,) bool
+    nodes: torch.Tensor        # (B,) int32
+    iters: torch.Tensor        # (B,) int32
+    exhausted: torch.Tensor    # (B,) bool: a node was pruned unconverged
+    capped: torch.Tensor       # (B,) bool: a node relaxation hit its iteration cap
+
+
+class IncState(NamedTuple):
+    """The incremental frontier's state: the GI solver state ``gi`` lives
+    across rounds (batch-major, as K3 takes it)."""
+
+    stack_fixed: torch.Tensor  # (B, cap, m) bool
+    stack_side: torch.Tensor   # (B, cap, m) bool
+    stack_bound: torch.Tensor  # (B, cap)
+    top: torch.Tensor          # (B,) int64
+    cur_fixed: torch.Tensor    # (B, m) bool: current node's fixed binaries
+    cur_fside: torch.Tensor    # (B, m) bool
+    active_node: torch.Tensor  # (B,) bool: the lane is solving a node
+    node_iter: torch.Tensor    # (B,) int32: iterations spent on the current node
+    du_l: torch.Tensor         # (B, m) float32 current node bounds (clamped)
+    dl_l: torch.Tensor
+    eq_l: torch.Tensor         # (B, m) bool
+    gi: iu.IUState             # the solver state K3 resumes
+    root: tuple                # (lam, act, side, R) of the root relaxation: a
+    #   valid warm start for every node of the lane (R depends only on the
+    #   working set, not on the bounds)
+    root_saved: torch.Tensor   # (B,) bool
+    ray_retry: torch.Tensor    # (B,) bool: the current node was already cold-retried
+    inc_fval: torch.Tensor     # (B,)
+    inc_active: torch.Tensor   # (B, m) bool
+    inc_side: torch.Tensor     # (B, m) bool
+    inc_found: torch.Tensor    # (B,) bool
+    nodes: torch.Tensor        # (B,) int32
+    iters: torch.Tensor        # (B,) int32
+    exhausted: torch.Tensor    # (B,) bool
+
+
+def prune_tops(top, inc_found, inc_fval, stack_bound):
+    """Pop (discard) the stacked nodes whose parent bound already reaches
+    the incumbent, from the top of each lane's stack down, without a solve:
+    the loop of ``bnb_frontier.py:245-259`` as one count per lane, the
+    cumulative product from the top down of ``inc_found & (bound >=
+    inc_fval)`` (entries at or above the top count as prunable)."""
+    cap = stack_bound.shape[1]
+    pos = torch.arange(cap, device=top.device)
+    q = (pos >= top[:, None]) | (inc_found[:, None] & (stack_bound >= inc_fval[:, None]))
+    run = q.flip(1).to(torch.int32).cumprod(1).flip(1)
+    return top - (run * (pos < top[:, None])).sum(1)
+
+
+def _take(x, j):
+    return x.gather(1, j[:, None])[:, 0]
+
+
+def _objective(arr: LDPArrays, U0, f_t, lam):
+    U = U0 - lam @ arr.HinvET.T
+    return U, 0.5 * ((U @ arr.H.T) * U).sum(1) + (f_t * U).sum(1)
+
+
+def _theta_terms(arr: LDPArrays, thetas):
+    th = thetas.to(arr.G.dtype)
+    dt = th @ arr.Dth.T
+    return (arr.du + dt, arr.dl + dt, arr.u_off + th @ arr.Uth_off.T,
+            arr.f + th @ arr.f_theta.T)
+
+
+def make_xla_relax(arr: LDPArrays, *, max_iter: int, primal_tol: float, sign_tol: float,
+                   mode: str = "iu") -> Callable:
+    """Node-relaxation solver in the dtype of ``arr`` (the float64 path).
+
+    ``mode="iu"``: the GI inverse-update loop ``iu.iterate_iu`` (the JAX
+    package's ``_active_set_loop_iu``), with dual-ray infeasibility
+    detection. ``mode="cholesky"``: the masked-Cholesky loop, the scheme
+    that converges on massively dual-degenerate relaxations (the contact
+    problem, m > 64); a converged node is checked against the full row set
+    (``_primal_feasible``) and a failed check counts as unconverged, never
+    as infeasible. Returns ``relax(du_n, dl_n, eq_lane, lam0, act0, side0)
+    -> (lam, act, side, iters, done, infeas, capped)``."""
+    dtype = arr.G.dtype
+    if mode == "cholesky":
+        def relax(du_n, dl_n, eq_lane, lam0, act0, side0):
+            st = _active_set_loop(arr, du_n, dl_n, lam0.to(dtype), act0, side0,
+                                  max_iter=max_iter, primal_tol=primal_tol,
+                                  sign_tol=sign_tol, use_cholesky=True, eq=eq_lane)
+            feas = _primal_feasible(arr, du_n, dl_n, st.lam, st.active, st.side, primal_tol)
+            return (st.lam, st.active, st.side, st.iters, st.done & feas,
+                    torch.zeros_like(feas), ~st.done)
+
+        return relax
+    if mode != "iu":
+        raise ValueError(f"mode must be 'iu' or 'cholesky', got {mode!r}")
+    m = arr.G.shape[0]
+    eye = torch.eye(m, dtype=dtype, device=arr.G.device)
+    Gs = arr.G_solve + 4.0 * torch.finfo(dtype).eps * eye
+
+    def relax(du_n, dl_n, eq_lane, lam0, act0, side0):
+        st = iu.iterate_iu(arr.G, Gs, du_n, dl_n, eq_lane, arr.is_immutable, lam0.to(dtype),
+                           act0, side0, iu.init_R_batch(arr.G_solve, act0),
+                           max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol)
+        return (st.lam, st.act, st.side, st.iters, st.done, st.infeas,
+                ~st.done & ~st.infeas)
+
+    return relax
+
+
+def make_kernel_relax(G, Gs, immut, *, max_iter: int, primal_tol: float,
+                      sign_tol: float) -> Callable:
+    """Node-relaxation solver on K3 (``iu.phase1_iu`` with a per-lane
+    ``eq``; the port of ``make_pallas_relax`` with its default ``cold``)
+    in the dtype of ``G``: every node starts from an empty working set with
+    R = I (one matrix for every lane), ignoring the warm start it is
+    given, and its rays are trusted."""
+    dtype, dev = G.dtype, G.device
+    m = G.shape[0]
+    R0 = torch.eye(m, dtype=dtype, device=dev)
+
+    def relax(du_n, dl_n, eq_lane, lam0, act0, side0):
+        B = du_n.shape[0]
+        zb = torch.zeros((B, m), dtype=torch.bool, device=dev)
+        lam, act, side, it, done, infeas, _R = iu.phase1_iu(
+            G, Gs, du_n.to(dtype).contiguous(), dl_n.to(dtype).contiguous(), eq_lane, immut,
+            torch.zeros((B, m), dtype=dtype, device=dev), zb, ~zb, R0,
+            max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol)
+        return lam, act, side, it, done, infeas, ~done & ~infeas
+
+    return relax
+
+
+def _status(found, budgeted, unresolved):
+    one = torch.ones(found.shape[0], dtype=torch.int32, device=found.device)
+    return torch.where(found, torch.where(budgeted, 2 * one, one),
+                       torch.where(unresolved, -one, -2 * one))
+
+
+def _result(sol: Solution, found, act, side, iters, status) -> Solution:
+    fm = found[:, None]
+    return Solution(torch.where(fm, sol.U, 0.0), torch.where(fm, sol.lam, 0.0), act, side,
+                    torch.where(found, sol.fval, BIG), iters, status)
+
+
+def solve_bnb_frontier(arr: LDPArrays, arr_hi: LDPArrays | None, thetas, relax: Callable, *,
+                       stack_cap: int = 64, node_limit: int = 1024,
+                       use_cholesky: bool = True, warm_nodes: bool = True) -> Solution:
+    """Solve a batch of hybrid LDP instances with one popped node per lane
+    a round, the popped nodes' relaxations solved together by ``relax``
+    (``bnb_frontier.py:200-420``). The incumbents are re-solved from their
+    working sets in the precision of ``arr_hi`` (``arr`` when None)."""
+    dtype, dev = arr.G.dtype, arr.G.device
+    thetas = torch.as_tensor(thetas, device=dev)
+    B, m = thetas.shape[0], arr.G.shape[0]
+    big = BIG
+    idx = torch.arange(m, device=dev)
+    du_t, dl_t, U0, f_t = _theta_terms(arr, thetas)
+    branchable_rows = arr.is_binary & ~arr.is_immutable & (arr.up_finite | arr.lo_finite)
+    zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+    cap_w = stack_cap if warm_nodes else 1
+    s = FrontierState(
+        stack_fixed=zb(B, stack_cap, m), stack_side=zb(B, stack_cap, m),
+        stack_lam=torch.zeros((B, cap_w, m), dtype=dtype, device=dev),
+        stack_act=zb(B, cap_w, m),
+        stack_ws=torch.ones((B, cap_w, m), dtype=torch.bool, device=dev),
+        stack_bound=torch.full((B, stack_cap), -big, dtype=dtype, device=dev),
+        top=torch.ones(B, dtype=torch.int64, device=dev),  # root: nothing fixed, cold
+        inc_fval=torch.full((B,), big, dtype=dtype, device=dev),
+        inc_lam=torch.zeros((B, m), dtype=dtype, device=dev),
+        inc_active=zb(B, m), inc_side=zb(B, m), inc_found=zb(B),
+        nodes=torch.zeros(B, dtype=torch.int32, device=dev),
+        iters=torch.zeros(B, dtype=torch.int32, device=dev),
+        exhausted=zb(B), capped=zb(B))
+
+    while bool(((s.top > 0) & (s.nodes < node_limit)).any()):
+        top = prune_tops(s.top, s.inc_found, s.inc_fval, s.stack_bound)
+        s.top.copy_(top)
+        r = torch.nonzero((top > 0) & (s.nodes < node_limit)).squeeze(1)
+        if r.numel() == 0:
+            continue
+        t = top[r] - 1
+        fixed, fside = s.stack_fixed[r, t], s.stack_side[r, t]
+        eq_lane = arr.is_eq | fixed
+        dut, dlt = du_t[r], dl_t[r]
+        d_f = torch.where(fside, dut, dlt)
+        du_n, dl_n = torch.where(fixed, d_f, dut), torch.where(fixed, d_f, dlt)
+        n = r.numel()
+        if warm_nodes:
+            lam0 = s.stack_lam[r, t]
+            act0 = s.stack_act[r, t] | eq_lane
+            side0 = torch.where(fixed, fside, s.stack_ws[r, t])
+        else:
+            lam0 = torch.zeros((n, m), dtype=dtype, device=dev)
+            act0, side0 = zb(n, m), torch.ones((n, m), dtype=torch.bool, device=dev)
+        lam, act, side, it_in, done, infeas, capped = relax(du_n, dl_n, eq_lane, lam0,
+                                                            act0, side0)
+        lam = lam.to(dtype)
+        _U, fval = _objective(arr, U0[r], f_t[r], lam)
+        feasible = done & ~infeas
+        unconverged = ~done & ~infeas
+        found, fbest = s.inc_found[r], s.inc_fval[r]
+        pruned = ~feasible | (found & (fval >= fbest))
+
+        # fractionality of unfixed binary rows: distance to the nearer
+        # viable bound (as ops/bnb.py)
+        c = lam @ arr.G.T
+        slack_up = torch.where(arr.up_finite, dut + c, big)
+        slack_lo = torch.where(arr.lo_finite, -dlt - c, big)
+        frac = torch.where(branchable_rows & ~fixed, torch.minimum(slack_up, slack_lo), -big)
+        jb = frac.argmax(1)
+        integral = _take(frac, jb) <= BIN_TOL
+
+        better = feasible & integral & ~pruned & (fval < fbest)
+        bt = better[:, None]
+        s.inc_fval[r] = torch.where(better, fval, fbest)
+        s.inc_lam[r] = torch.where(bt, lam, s.inc_lam[r])
+        # pin every fixed binary row at its branched bound and side: the f64
+        # polish solves the unclamped problem, where a clamped row satisfied
+        # with zero multiplier would not be in the working set
+        s.inc_active[r] = torch.where(bt, act | fixed, s.inc_active[r])
+        s.inc_side[r] = torch.where(bt, torch.where(fixed, fside, side), s.inc_side[r])
+        s.inc_found[r] = found | better
+
+        # branch on jb: push the far bound first, the near one last (popped next)
+        branch = ~pruned & ~integral
+        onehot = idx == jb[:, None]
+        child_fixed = fixed | onehot
+        near_up = _take(slack_up, jb) <= _take(slack_lo, jb)
+        nu = near_up[:, None]
+        far_viable = torch.where(near_up, arr.lo_finite[jb], arr.up_finite[jb])
+        # an unconverged parent's value is not a valid bound for its children
+        child_bound = torch.where(unconverged, -big, fval)
+
+        def push(t, node_side, ws_side, do):
+            do = do & (t < stack_cap)
+            ix = t.clamp(max=stack_cap - 1)
+            d = do[:, None]
+            s.stack_fixed[r, ix] = torch.where(d, child_fixed, s.stack_fixed[r, ix])
+            s.stack_side[r, ix] = torch.where(d, node_side, s.stack_side[r, ix])
+            if warm_nodes:
+                s.stack_lam[r, ix] = torch.where(d, lam, s.stack_lam[r, ix])
+                s.stack_act[r, ix] = torch.where(d, act, s.stack_act[r, ix])
+                s.stack_ws[r, ix] = torch.where(d, ws_side, s.stack_ws[r, ix])
+            s.stack_bound[r, ix] = torch.where(do, child_bound, s.stack_bound[r, ix])
+            return t + do.to(t.dtype)
+
+        t = push(t, torch.where(onehot, ~nu, fside), torch.where(onehot, ~nu, side),
+                 branch & far_viable)
+        t = push(t, torch.where(onehot, nu, fside), torch.where(onehot, nu, side), branch)
+        s.top[r] = t
+        s.nodes[r] += 1
+        s.iters[r] += it_in.to(torch.int32)
+        s.exhausted[r] |= unconverged
+        s.capped[r] |= capped
+
+    # a lane whose node relaxation hit its iteration cap, or that hit the
+    # node limit, may hold an exact incumbent but did not finish the tree:
+    # status 2; `exhausted` (unconverged-node prunes) splits -1 from -2
+    budgeted = s.capped | (s.nodes >= node_limit)
+    status = _status(s.inc_found, budgeted, s.exhausted | budgeted)
+    hi = arr if arr_hi is None else arr_hi
+    sol = polish_solution(hi, thetas, s.inc_active, s.inc_side, use_cholesky=use_cholesky)
+    return _result(sol, s.inc_found, s.inc_active, s.inc_side, s.iters, status)
+
+
+class IncFrontier:
+    """The incremental node-frontier B&B (``bnb_frontier.py:460-785``) over
+    ``stepper(du_l, dl_l, eq_l, gi) -> (gi, steps)``, K3's resumable entry
+    (``iu.make_iu_stepper``). ``solve`` runs ``init``, then ``round`` while
+    ``running`` (the round's one host sync), then ``finish``; the pieces are
+    public so a caller can run and inspect single rounds."""
+
+    def __init__(self, arr: LDPArrays, arr_hi: LDPArrays | None, stepper, *,
+                 stack_cap: int = 64, node_limit: int = 1024, node_cap: int = 200,
+                 use_cholesky: bool = True):
+        self.arr, self.arr_hi, self.stepper = arr, arr_hi, stepper
+        self.stack_cap, self.node_limit, self.node_cap = stack_cap, node_limit, node_cap
+        self.use_cholesky = use_cholesky
+        self.branchable_rows = (arr.is_binary & ~arr.is_immutable
+                                & (arr.up_finite | arr.lo_finite))
+        m = arr.G.shape[0]
+        self.eye = torch.eye(m, dtype=torch.float32, device=arr.G.device)
+        self.idx = torch.arange(m, device=arr.G.device)
+        self.rounds = 0
+
+    def init(self, thetas) -> IncState:
+        arr = self.arr
+        dtype, dev = arr.G.dtype, arr.G.device
+        self.thetas = thetas = torch.as_tensor(thetas, device=dev)
+        B, m, cap = thetas.shape[0], arr.G.shape[0], self.stack_cap
+        self.du_t, self.dl_t, self.U0, self.f_t = _theta_terms(arr, thetas)
+        self.bidx = torch.arange(B, device=dev)
+        self.rounds = 0
+        f32 = torch.float32
+        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+        ones = lambda *s: torch.ones(s, dtype=torch.bool, device=dev)
+        eye_b = self.eye.expand(B, m, m)
+        gi = iu.IUState(
+            lam=torch.zeros((B, m), dtype=f32, device=dev), act=zb(B, m), side=ones(B, m),
+            pend=torch.full((B,), -1, dtype=torch.int64, device=dev), pend_side=ones(B),
+            iters=torch.zeros(B, dtype=torch.int32, device=dev), done=zb(B), infeas=zb(B),
+            R=eye_b)
+        return IncState(
+            stack_fixed=zb(B, cap, m), stack_side=zb(B, cap, m),
+            stack_bound=torch.full((B, cap), -BIG, dtype=dtype, device=dev),
+            top=torch.zeros(B, dtype=torch.int64, device=dev),
+            cur_fixed=zb(B, m), cur_fside=zb(B, m),
+            active_node=ones(B),  # the root is every lane's first node
+            node_iter=torch.zeros(B, dtype=torch.int32, device=dev),
+            du_l=self.du_t.to(f32), dl_l=self.dl_t.to(f32),
+            eq_l=arr.is_eq.expand(B, m).clone(),
+            gi=gi, root=(gi.lam, gi.act, gi.side, eye_b), root_saved=zb(B),
+            ray_retry=zb(B), inc_fval=torch.full((B,), BIG, dtype=dtype, device=dev),
+            inc_active=zb(B, m), inc_side=zb(B, m), inc_found=zb(B),
+            nodes=torch.ones(B, dtype=torch.int32, device=dev),
+            iters=torch.zeros(B, dtype=torch.int32, device=dev), exhausted=zb(B))
+
+    def running(self, s: IncState) -> bool:
+        """Whether a lane still solves a node or can pop one (one host sync)."""
+        return bool((s.active_node | ((s.top > 0) & (s.nodes < self.node_limit))).any())
+
+    def round(self, s: IncState) -> IncState:
+        """k_round GI iterations of every lane, then branch / prune /
+        incumbent updates and backtrack pops. Tensors handed to the stepper
+        are never modified in place afterwards."""
+        arr, big, cap = self.arr, BIG, self.stack_cap
+        dtype = arr.G.dtype
+        du_t, dl_t, bidx = self.du_t, self.dl_t, self.bidx
+        self.rounds += 1
+
+        # ---- k_round iterations of every lane
+        gi, steps = self.stepper(s.du_l, s.dl_l, s.eq_l, s.gi)
+        iters = s.iters + steps
+        node_iter = s.node_iter + steps
+
+        # ---- management
+        done, infeas, act, side = gi.done, gi.infeas, gi.act, gi.side
+        lam = gi.lam.to(dtype)
+        conv = s.active_node & done & ~infeas
+        nfail_exh = s.active_node & ~done & (node_iter >= self.node_cap)
+        # a dual-ray verdict reached from warm carried state (root snapshot
+        # + chained rank-2 updates) is not trusted: the node is re-solved
+        # once from a cold start; only a ray found on the retry prunes it
+        ray = s.active_node & done & infeas
+        retry = ray & ~s.ray_retry
+        nfail = (ray & s.ray_retry) | nfail_exh
+
+        _U, fval = _objective(arr, self.U0, self.f_t, lam)
+        pruned_conv = conv & s.inc_found & (fval >= s.inc_fval)
+        c = lam @ arr.G.T
+        # mid-solve bound pruning: every GI iterate is dual feasible, so the
+        # dual value is a lower bound on the node optimum at every iteration
+        d_side = torch.where(side, s.du_l, s.dl_l).to(dtype)
+        gval = fval - torch.where(act, lam * (d_side + c), 0.0).sum(1)
+        prune_mid = (s.active_node & ~done & s.inc_found
+                     & (gval >= s.inc_fval + 1e-4 * (1.0 + s.inc_fval.abs())))
+        slack_up = torch.where(arr.up_finite, du_t + c, big)
+        slack_lo = torch.where(arr.lo_finite, -dl_t - c, big)
+        frac = torch.where(self.branchable_rows & ~s.cur_fixed,
+                           torch.minimum(slack_up, slack_lo), -big)
+        jb = frac.argmax(1)
+        integral = _take(frac, jb) <= BIN_TOL
+
+        # snapshot the root relaxation's solver state at its convergence
+        save = conv & ~s.root_saved
+        sv = save[:, None]
+        root = (torch.where(sv, gi.lam, s.root[0]), torch.where(sv, act, s.root[1]),
+                torch.where(sv, side, s.root[2]),
+                torch.where(save[:, None, None], gi.R, s.root[3]))
+        root_saved = s.root_saved | save
+
+        better = conv & ~pruned_conv & integral & (fval < s.inc_fval)
+        bt = better[:, None]
+        inc_fval = torch.where(better, fval, s.inc_fval)
+        # the recorded working set pins every fixed binary row at its
+        # branched bound and side for the float64 polish of the unclamped
+        # problem
+        inc_active = torch.where(bt, act | s.cur_fixed, s.inc_active)
+        inc_side = torch.where(bt, torch.where(s.cur_fixed, s.cur_fside, side), s.inc_side)
+        inc_found = s.inc_found | better
+
+        # ---- branch: push the far child, continue the near child in place
+        branch = conv & ~pruned_conv & ~integral
+        onehot = self.idx == jb[:, None]
+        near_up = _take(slack_up, jb) <= _take(slack_lo, jb)
+        child_fixed = s.cur_fixed | onehot
+        far_side = torch.where(onehot, ~near_up[:, None], s.cur_fside)
+        far_viable = torch.where(near_up, arr.lo_finite[jb], arr.up_finite[jb])
+        do_push = branch & far_viable & (s.top < cap)
+        ix = s.top.clamp(max=cap - 1)
+        dom = do_push[:, None]
+        s.stack_fixed[bidx, ix] = torch.where(dom, child_fixed, s.stack_fixed[bidx, ix])
+        s.stack_side[bidx, ix] = torch.where(dom, far_side, s.stack_side[bidx, ix])
+        s.stack_bound[bidx, ix] = torch.where(do_push, fval, s.stack_bound[bidx, ix])
+        top = s.top + do_push.to(s.top.dtype)
+
+        bm = onehot & branch[:, None]
+        cur_fixed = torch.where(branch[:, None], child_fixed, s.cur_fixed)
+        cur_fside = torch.where(bm, near_up[:, None], s.cur_fside)
+        nodes = s.nodes + branch.to(torch.int32)
+        # clamp the branched row's bounds and make it an equality row
+        d_b = torch.where(near_up, _take(du_t, jb), _take(dl_t, jb)).to(torch.float32)
+        du_l = torch.where(bm, d_b[:, None], s.du_l)
+        dl_l = torch.where(bm, d_b[:, None], s.dl_l)
+        eq_l = s.eq_l | bm
+        # the near child resumes the parent's solver state
+        done = done & ~branch
+
+        finished = (conv & (pruned_conv | integral)) | nfail | prune_mid
+        active_node = s.active_node & ~finished
+        exhausted = s.exhausted | nfail_exh
+        node_iter = torch.where(branch | finished | retry, 0, node_iter)
+        ray_retry = torch.where(branch | finished, False, s.ray_retry | retry)
+
+        # ---- backtrack pops for idle lanes (restart from the root snapshot)
+        top = prune_tops(top, inc_found, inc_fval, s.stack_bound)
+        can_pop = ~active_node & (top > 0) & (nodes < self.node_limit)
+        pidx = (top - 1).clamp(min=0)
+        pop_fixed, pop_fside = s.stack_fixed[bidx, pidx], s.stack_side[bidx, pidx]
+        top = top - can_pop.to(top.dtype)
+        nodes = nodes + can_pop.to(torch.int32)
+        cp = can_pop[:, None]
+        cur_fixed = torch.where(cp, pop_fixed, cur_fixed)
+        cur_fside = torch.where(cp, pop_fside, cur_fside)
+        active_node = active_node | can_pop
+
+        d_f = torch.where(pop_fside, du_t, dl_t)
+        du_l = torch.where(cp, torch.where(pop_fixed, d_f, du_t).to(torch.float32), du_l)
+        dl_l = torch.where(cp, torch.where(pop_fixed, d_f, dl_t).to(torch.float32), dl_l)
+        eq_l = torch.where(cp, arr.is_eq | pop_fixed, eq_l)
+        # the root snapshot (cold zeros / identity before the root converged)
+        g_lam = torch.where(cp, root[0], gi.lam)
+        g_act = torch.where(cp, root[1], act)
+        g_side = torch.where(cp, root[2], side)
+        g_R = torch.where(can_pop[:, None, None], root[3], gi.R)
+        pend = torch.where(can_pop, -1, gi.pend)
+        g_infeas = infeas & ~can_pop
+        # popped lanes resume; permanently idle lanes freeze in the kernel
+        g_done = torch.where(can_pop, False, torch.where(~active_node, True, done))
+
+        # ray-retry lanes restart the same node from a genuinely cold state
+        # (not the root snapshot, whose R may hold the drift behind the ray)
+        rt = retry[:, None]
+        g_lam = torch.where(rt, 0.0, g_lam)
+        g_act = g_act & ~rt
+        g_side = g_side | rt
+        pend = torch.where(retry, -1, pend)
+        g_infeas = g_infeas & ~retry
+        g_done = g_done & ~retry
+        g_R = torch.where(retry[:, None, None], self.eye, g_R)
+        gi = iu.IUState(g_lam, g_act, g_side, pend, gi.pend_side, gi.iters, g_done,
+                        g_infeas, g_R)
+
+        return IncState(s.stack_fixed, s.stack_side, s.stack_bound, top, cur_fixed,
+                        cur_fside, active_node, node_iter, du_l, dl_l, eq_l, gi, root,
+                        root_saved, ray_retry, inc_fval, inc_active, inc_side, inc_found,
+                        nodes, iters, exhausted)
+
+    def finish(self, s: IncState) -> Solution:
+        """Statuses (``bnb_frontier.py:754-778``) and the float64 re-solve of
+        each incumbent's working set."""
+        # 1 = proven optimal; 2 = exact incumbent but budget-limited search
+        # (this path's `exhausted` is budget-only: ray prunes are certified
+        # by a cold retry)
+        budgeted = s.exhausted | (s.nodes >= self.node_limit)
+        status = _status(s.inc_found, budgeted, budgeted)
+        if self.arr_hi is not None and self.arr.G.dtype == torch.float32:
+            sol = refined_polish(self.arr, self.arr_hi, self.thetas, s.inc_active, s.inc_side)
+        else:
+            hi = self.arr if self.arr_hi is None else self.arr_hi
+            sol = polish_solution(hi, self.thetas, s.inc_active, s.inc_side,
+                                  use_cholesky=self.use_cholesky)
+        # a found incumbent whose polish residual stalled is not optimal
+        status = torch.where(s.inc_found & (sol.status != 1), -1, status)
+        return _result(sol, s.inc_found, s.inc_active, s.inc_side, s.iters, status)
+
+    def solve(self, thetas) -> Solution:
+        s = self.init(thetas)
+        while self.running(s):
+            s = self.round(s)
+        return self.finish(s)
+
+
+def refined_polish(arr: LDPArrays, hi: LDPArrays, thetas, act, side,
+                   refine: int = 12) -> Solution:
+    """Batched working-set re-solve: the float32 masked inverse as the
+    preconditioner of a float64 Richardson iteration (``bnb_frontier.py:
+    788-818``). Status 1 where the relative working-set residual is within
+    1e-6, -1 where the Richardson stalled (an ill-conditioned incumbent set
+    is not reported optimal)."""
+    R = iu.init_R_batch(arr.G_solve, act)
+    th64 = thetas.to(torch.float64)
+    dt = th64 @ hi.Dth.T
+    du_h, dl_h = hi.du + dt, hi.dl + dt
+    actf = act.to(torch.float64)
+    rhs = -actf * torch.where(side, du_h, dl_h)
+
+    def apply_R(v):
+        return torch.bmm(R, v.to(torch.float32)[:, :, None])[:, :, 0].to(torch.float64)
+
+    def mask_apply(v):
+        return actf * ((v * actf) @ hi.G_solve.T) + (1.0 - actf) * v
+
+    lam = apply_R(rhs)
+    for _ in range(refine):
+        lam = lam + apply_R(rhs - mask_apply(lam))
+    U, fval = _objective(hi, hi.u_off + th64 @ hi.Uth_off.T, hi.f + th64 @ hi.f_theta.T, lam)
+    sys_res = (mask_apply(lam) - rhs).abs().amax(1)
+    ok = sys_res <= 1e-6 * (1.0 + rhs.abs().amax(1))
+    B = thetas.shape[0]
+    one = torch.ones(B, dtype=torch.int32, device=ok.device)
+    return Solution(U, lam, act, side, fval, torch.zeros_like(one), torch.where(ok, one, -one))
+

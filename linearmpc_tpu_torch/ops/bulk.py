@@ -40,6 +40,7 @@ def iterate(solve, G, du_t, dl_t, eq, immut, lam, act, side, *,
 
     ``solve(act, rhs) -> lam_star`` solves the working-set system of the
     running lanes (a subset-table gather or a masked factorization).
+    ``eq`` is (m,) or per lane (B, m).
     ``max_iter`` is an int or a (B,) tensor of per-lane limits on
     ``iters``; ``iters0`` (B,) int32 is where each lane's count starts.
     A lane runs while it is not done and below its limit, and only its
@@ -65,11 +66,12 @@ def iterate(solve, G, du_t, dl_t, eq, immut, lam, act, side, *,
             break
         l, a, s = lam[run], act[run], side[run]
         du, dl = du_t[run], dl_t[run]
+        e = eq[run] if eq.dim() == 2 else eq
         rhs = torch.where(a, -torch.where(s, du, dl), 0.0)
         ls = solve(a, rhs)
 
         # multipliers of removable active rows must satisfy the side's sign
-        sign_viol = a & ~eq & torch.where(s, ls < -sign_tol, ls > sign_tol)
+        sign_viol = a & ~e & torch.where(s, ls < -sign_tol, ls > sign_tol)
         has_viol = sign_viol.any(1, keepdim=True)
 
         # blocking step: the first multiplier to cross zero leaves the set

@@ -1,8 +1,9 @@
 """Batched dual active-set LDP solver: the exact float64 path.
 
 Port of ``linearmpc_tpu/ops/dual_active_set.py`` (``_active_set_loop``,
-``_transformed_bounds``, ``solve_single``/``solve_batch``,
-``finish_from_state``, ``polish_solution``, ``_primal_feasible``). The JAX
+``_transformed_bounds``, ``solve_single``/``solve_batch`` with forced
+rows, ``finish_from_state``, ``polish_solution``, ``_primal_feasible``;
+``_active_set_loop_iu`` is ``ops/iu.iterate_iu`` in float64). The JAX
 package ``vmap``s a per-instance ``lax.while_loop``; here the batch is a
 written-out leading dimension and the loop is a Python loop over the lanes
 still running (``bulk.iterate``), each frozen once it is done or at its
@@ -49,6 +50,9 @@ class LDPArrays(NamedTuple):
     subset_inv: torch.Tensor | None  # (2^m, m, m) working-set inverse cache
     is_eq_host: torch.Tensor          # is_eq and is_immutable on the host, as
     is_immutable_host: torch.Tensor   # the kernels take them (no device sync)
+    is_binary: torch.Tensor           # binary rows (branch-and-bound)
+    up_finite: torch.Tensor           # finite upper / lower bound: a binary
+    lo_finite: torch.Tensor           # row can be fixed there
 
 
 class DualState(NamedTuple):
@@ -82,6 +86,8 @@ def to_device_arrays(ldp: LDPData, dtype, device, subset_inv=None) -> LDPArrays:
         is_eq=host(ldp.is_eq).to(device), is_immutable=host(ldp.is_immutable).to(device),
         subset_inv=None if subset_inv is None else cast(subset_inv),
         is_eq_host=host(ldp.is_eq), is_immutable_host=host(ldp.is_immutable),
+        is_binary=host(ldp.is_binary).to(device), up_finite=host(ldp.up_finite).to(device),
+        lo_finite=host(ldp.lo_finite).to(device),
     )
 
 
@@ -117,8 +123,10 @@ def _masked_inverse(Gmask):
 
 def _active_set_loop(arr: LDPArrays, du_t, dl_t, lam, active, side, *,
                      max_iter, primal_tol: float, sign_tol: float,
-                     use_cholesky: bool, iters0=None) -> DualState:
-    """The batched masked dual active-set iteration (one precision)."""
+                     use_cholesky: bool, iters0=None, eq=None) -> DualState:
+    """The batched masked dual active-set iteration (one precision); ``eq``
+    is ``arr.is_eq`` unless a per-lane (B, m) mask is given (branch-and-bound
+    nodes clamp their fixed binary rows to equality)."""
     if arr.subset_inv is not None:
         table = arr.subset_inv
 
@@ -129,13 +137,23 @@ def _active_set_loop(arr: LDPArrays, du_t, dl_t, lam, active, side, *,
             return _masked_solve(arr.G_solve, a, rhs, use_cholesky)
 
     return DualState(*bulk.iterate(
-        solve, arr.G, du_t, dl_t, arr.is_eq, arr.is_immutable, lam, active, side,
+        solve, arr.G, du_t, dl_t, arr.is_eq if eq is None else eq, arr.is_immutable,
+        lam, active, side,
         max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol, iters0=iters0))
 
 
-def _transformed_bounds(arr: LDPArrays, thetas):
+def _transformed_bounds(arr: LDPArrays, thetas, forced_mask=None, forced_side=None):
+    """Each lane's bounds; ``forced_mask``/``forced_side`` (B, m) clamp the
+    given rows to equality at the chosen bound (upper where the side is
+    True), as branch-and-bound fixes binary rows (``dual_active_set.py:
+    620-631``)."""
     dt = thetas.to(arr.Dth.dtype) @ arr.Dth.T
-    return arr.du + dt, arr.dl + dt
+    du_t, dl_t = arr.du + dt, arr.dl + dt
+    if forced_mask is not None:
+        d_forced = torch.where(forced_side, du_t, dl_t)
+        du_t = torch.where(forced_mask, d_forced, du_t)
+        dl_t = torch.where(forced_mask, d_forced, dl_t)
+    return du_t, dl_t
 
 
 def _recover(arr: LDPArrays, thetas, lam):
@@ -164,10 +182,12 @@ def _primal_feasible(arr: LDPArrays, du_t, dl_t, lam, act, side, primal_tol):
 
 def solve_batch(arr: LDPArrays, thetas, lam0=None, active0=None, side0=None, *,
                 max_iter: int = 500, primal_tol: float = 1e-6,
-                sign_tol: float = 1e-12, use_cholesky: bool = True) -> Solution:
+                sign_tol: float = 1e-12, use_cholesky: bool = True,
+                forced_mask=None, forced_side=None) -> Solution:
     """Solve a (B, n_theta) batch in the dtype of ``arr`` with optional
     per-lane warm starts: ``solve_single`` of the JAX package without the
-    high-precision continuation (the exact float64 path)."""
+    high-precision continuation (the exact float64 path). ``forced_mask``/
+    ``forced_side`` (B, m) clamp rows to equality at a bound, per lane."""
     dtype, dev = arr.G.dtype, arr.G.device
     thetas = torch.as_tensor(thetas, device=dev).to(dtype)
     B, m = thetas.shape[0], arr.G.shape[0]
@@ -177,8 +197,10 @@ def solve_batch(arr: LDPArrays, thetas, lam0=None, active0=None, side0=None, *,
         zb = torch.zeros((B, 0), dtype=torch.bool, device=dev)
         return Solution(U, z, zb, zb, fval, torch.zeros(B, dtype=torch.int32, device=dev),
                         torch.ones(B, dtype=torch.int32, device=dev))
-    du_t, dl_t = _transformed_bounds(arr, thetas)
+    du_t, dl_t = _transformed_bounds(arr, thetas, forced_mask, forced_side)
     eq = arr.is_eq.expand(B, m)
+    if forced_mask is not None:
+        eq = eq | forced_mask
     lam = torch.zeros((B, m), dtype=dtype, device=dev) if lam0 is None else lam0.to(dev, dtype)
     active = eq.clone() if active0 is None else active0.to(dev) | eq
     side = (torch.ones((B, m), dtype=torch.bool, device=dev) if side0 is None
@@ -186,7 +208,8 @@ def solve_batch(arr: LDPArrays, thetas, lam0=None, active0=None, side0=None, *,
     lam = torch.where(active, lam, 0.0)
     final = _active_set_loop(arr, du_t, dl_t, lam, active, side, max_iter=max_iter,
                              primal_tol=primal_tol, sign_tol=sign_tol,
-                             use_cholesky=use_cholesky)
+                             use_cholesky=use_cholesky,
+                             eq=None if forced_mask is None else eq)
     U, fval = _recover(arr, thetas, final.lam)
     feas = _primal_feasible(arr, du_t, dl_t, final.lam, final.active, final.side,
                             primal_tol)

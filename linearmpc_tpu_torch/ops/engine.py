@@ -25,21 +25,42 @@ engine does on its accelerator:
   escalating guard ladder, all on K4's float64 instantiation;
   ``fused_rollout_solve_ciu`` is its warm step with the carried slots.
 
+Two kinds of problem take other paths, in this order (``engine.py:
+1426-1475``):
+
+* **a lexicographic hierarchy** (``lexicographic=True``): ``hierarchy.
+  LexSolver``, one float64 solve per priority level whatever the engine's
+  dtype and device, on K1's float64 instantiation on CUDA at m <= 10;
+* **binary rows** (``has_binaries=True``), branch-and-bound
+  (``engine.py:1245-1397``): in float32 the incremental node frontier
+  (``bnb_frontier.IncFrontier``) on K3's resumable entry, where the
+  frontier's routing rule ``iu_max_chunk_lanes(m, 20 MiB) >= 128`` admits
+  m (m <= 66); in float64 the pop-per-round frontier with the GI relax for
+  m <= 64 and the masked-Cholesky relax above, and single solves through
+  the per-lane depth-first search (``bnb.solve_bnb_dfs``), which also
+  serves a non-symmetric H.
+
 Each tier is one piece of code: on CUDA tensors it launches the kernels,
 on CPU tensors it runs their plain versions. The tiers' float32 matrix
 products run at full precision (``full_f32``), as the JAX package's
 ``Precision.HIGHEST``. On CUDA the default dtype is float32, and a
-configuration outside the tiers (float64, float32 at m = 11-12, binaries,
-lexicographic hierarchy, non-symmetric H) raises ``NotImplementedError``
-naming the ROADMAP item that ports it; it does not run on the CPU
-instead. The JAX package's environment switches (``LINEARMPC_TPU_PALLAS``,
-``LINEARMPC_TPU_CIU_SMAX``, ...) are not ported. No lane chunking and no
-B % 128 rule: the kernels take any batch size.
+configuration outside these paths (float64 outside the hierarchy, float32
+at m = 11-12, a non-symmetric H in float32, float32 branch-and-bound at
+m >= 67) raises ``NotImplementedError`` naming the ROADMAP item that ports
+it; it does not run on the CPU instead. The JAX package's environment
+switches (``LINEARMPC_TPU_PALLAS``, ``LINEARMPC_TPU_CIU_SMAX``,
+``LINEARMPC_TPU_BNB_K``, ...) are not ported: branch-and-bound runs with
+their defaults (8 iterations a round, mid-solve pruning and root warm
+starts on). No lane chunking and no B % 128 rule or padding: the kernels
+take any batch size.
 
 Deliberate differences from the JAX package: the small-m tier reports
 status 1 or -1 only (``engine.py:1209-1210``); K4 breaks ties between
 equal dual step lengths by row, as the Pallas kernel does, also where the
-JAX package runs its XLA compact loop (warm solves, the f64 guards).
+JAX package runs its XLA compact loop (warm solves, the f64 guards); a
+float64 re-solve (the IU tier's, the compact guard and ladder) whose
+multipliers are not finite is unresolved (-1) whatever it flagged, where
+the JAX package would take its -3 with NaN controls.
 """
 
 from __future__ import annotations
@@ -50,6 +71,8 @@ import numpy as np
 import torch
 
 from . import bulk, ciu, iu, polish
+from .bnb import solve_bnb_dfs
+from .bnb_frontier import IncFrontier, make_xla_relax, solve_bnb_frontier
 from .dual_active_set import (
     LDPArrays,
     Solution,
@@ -57,6 +80,7 @@ from .dual_active_set import (
     solve_batch,
     to_device_arrays,
 )
+from .hierarchy import LexSolver
 from .ldp import SUBSET_CACHE_MAX_M, LDPData, precompute_subset_inverses
 
 STRAGGLER_K = 256   # lanes routed through the float64 continuation
@@ -68,6 +92,7 @@ REFINE_ROLL = 4     # ... of its rollout step (:353)
 REFINE_C = 4        # ... of the compact tier (:488)
 REFINE_CR = 5       # ... of its rollout step (:945)
 ROLL_RES = 1e-6     # relative system residual of a large-m rollout step
+K_ROUND = 8         # GI iterations a round of the incremental frontier (engine.py:1304)
 
 
 def default_dtype(device) -> torch.dtype:
@@ -85,9 +110,9 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
-def _unsupported(what: str, item: str):
+def _unsupported(what: str, item: str, where: str = " to CUDA"):
     raise NotImplementedError(
-        f"{what} is not ported to CUDA yet (ROADMAP.md, modules to port, {item})")
+        f"{what} is not ported{where} yet (ROADMAP.md, modules to port, {item})")
 
 
 @contextlib.contextmanager
@@ -135,8 +160,10 @@ class SolverEngine:
         primal_tol: float = 1e-6,
         sign_tol: float = 1e-12,
         has_binaries: bool = False,
+        bnb_node_limit: int = 4096,
         symmetric: bool = True,
         lexicographic: bool = False,
+        soft_weight: float = 1e6,
     ):
         self.ldp = ldp
         self.device = resolve_device(device)
@@ -146,30 +173,47 @@ class SolverEngine:
         m = ldp.m
         on_cuda = self.device.type == "cuda"
         self.tier = self.dtype == torch.float32
-        if has_binaries:
-            _unsupported("hybrid (binary) MPC / branch-and-bound", "item 6")
+        self.iter_limit = int(iter_limit)
+        self.symmetric = bool(symmetric)
+        self.has_binaries = bool(has_binaries)
+        self.bnb_node_limit = int(bnb_node_limit)
+        # the sequential lexicographic hierarchy takes over every solve, in
+        # float64 on the engine's device (engine.py:44-53)
+        self.lex = None
         if lexicographic:
-            _unsupported("the lexicographic hierarchy", "item 6")
+            self.lex = LexSolver(ldp, device=self.device, soft_weight=soft_weight,
+                                 iter_limit=iter_limit, primal_tol=primal_tol,
+                                 sign_tol=max(sign_tol, 1e-11))
+            self.path = "lex"
+            self.primal_tol, self.sign_tol = self.lex.primal_tol, self.lex.sign_tol
+            self.arrays, self.arrays_hi = self.lex.base, None
+            return
         if on_cuda and not self.tier:
             _unsupported("the float64 exact path on CUDA", "item 10")
         if self.tier and not symmetric:
             _unsupported("a non-symmetric H (AVI) in the float32 tiers", "item 10")
-        if self.tier and m <= 0:
-            _unsupported("the float32 tiers at m=0", "item 10")
-        if self.tier and bulk.MAX_M < m <= SUBSET_CACHE_MAX_M:
-            _unsupported(f"the float32 tier at m={m} (the JAX package runs its XLA "
-                         f"solve_single there)", "item 10")
-        # the tier the JAX engine picks on its accelerator
-        self.path = "exact"
-        if self.tier:
-            self.path = ("small" if m <= bulk.MAX_M
-                         else "iu" if iu.iu_max_chunk_lanes(m) >= iu.LANES else "compact")
+        if self.has_binaries:
+            self.path = "hybrid"
+            if self.tier and iu.iu_max_chunk_lanes(m, iu.FRONTIER_BUDGET) < iu.LANES:
+                _unsupported(f"float32 branch-and-bound at m={m} (the frontier rounds, "
+                             f"make_frontier_rounds and _active_set_loop_wu)", "item 6b",
+                             where="")
+        else:
+            if self.tier and m <= 0:
+                _unsupported("the float32 tiers at m=0", "item 10")
+            if self.tier and bulk.MAX_M < m <= SUBSET_CACHE_MAX_M:
+                _unsupported(f"the float32 tier at m={m} (the JAX package runs its XLA "
+                             f"solve_single there)", "item 10")
+            # the tier the JAX engine picks on its accelerator
+            self.path = "exact"
+            if self.tier:
+                self.path = ("small" if m <= bulk.MAX_M
+                             else "iu" if iu.iu_max_chunk_lanes(m) >= iu.LANES else "compact")
 
         subset_inv = None
         if 0 < m <= SUBSET_CACHE_MAX_M:
             subset_inv = precompute_subset_inverses(ldp)
         self._subset_inv = subset_inv
-        self.iter_limit = int(iter_limit)
         # tolerances must sit above the iteration dtype's noise floor or
         # marginal multipliers flip sign forever; the f64 tiers restore
         # full accuracy afterwards (engine.py:68-70)
@@ -178,10 +222,12 @@ class SolverEngine:
             sign_tol = max(sign_tol, 1e-6)
         self.primal_tol = float(primal_tol)
         self.sign_tol = float(sign_tol)
-        self.symmetric = bool(symmetric)
         self.arrays: LDPArrays = to_device_arrays(ldp, self.dtype, self.device, subset_inv)
         self.arrays_hi = (to_device_arrays(ldp, torch.float64, self.device, subset_inv)
                           if self.tier else None)
+        if self.has_binaries:
+            self._init_hybrid()
+            return
         if not self.tier:
             return
         # kernel-side flags stay on the host: no device sync per launch
@@ -205,6 +251,56 @@ class SolverEngine:
             # second chance and the guards finish the rest (engine.py:549)
             self.bulk_cap_p = min(self.bulk_cap, max(26, 2 * ldp.n + 10))
             self.stats: dict[str, int] = {}
+
+    def _init_hybrid(self):
+        """Branch-and-bound set-up (engine.py:1245-1397): the stack holds a
+        depth-first path (2 nb + 2 nodes), a node relaxation gets 2 m + 24
+        iterations. ``bnb_mode``: "inc" (float32, the incremental frontier on
+        K3's resumable entry), "frontier" (float64, pop-per-round with the GI
+        relax at m <= 64 and the masked-Cholesky relax above) or "dfs" (a
+        non-symmetric H, the per-lane depth-first search)."""
+        ldp, m = self.ldp, self.ldp.m
+        nb = int(np.sum(ldp.is_binary))
+        self.stack_cap = max(2 * nb + 2, 4)
+        self.node_cap = min(self.iter_limit, 2 * m + 24)
+        if not self.symmetric:
+            self.bnb_mode = "dfs"
+        elif self.tier:
+            self.bnb_mode = "inc"
+            self._G32, self._Gs32 = iu.gram(ldp, torch.float32, self.device)
+            self._stepper = iu.make_iu_stepper(
+                self._G32, self._Gs32, self.arrays.is_immutable, K=K_ROUND,
+                primal_tol=self.primal_tol, sign_tol=self.sign_tol)
+        else:
+            self.bnb_mode = "frontier"
+            self._relax = make_xla_relax(self.arrays, max_iter=self.node_cap,
+                                         mode="cholesky" if m > 64 else "iu",
+                                         primal_tol=self.primal_tol, sign_tol=self.sign_tol)
+
+    def inc_frontier(self) -> IncFrontier:
+        """The float32 engine's incremental frontier (its rounds can be run
+        one at a time)."""
+        return IncFrontier(self.arrays, self.arrays_hi, self._stepper,
+                           stack_cap=self.stack_cap, node_limit=self.bnb_node_limit,
+                           node_cap=self.node_cap, use_cholesky=self.symmetric)
+
+    def _hybrid_batch(self, thetas) -> Solution:
+        if self.bnb_mode == "inc":
+            return self.inc_frontier().solve(thetas)
+        if self.bnb_mode == "frontier":
+            return solve_bnb_frontier(self.arrays, None, thetas, self._relax,
+                                      stack_cap=self.stack_cap, node_limit=self.bnb_node_limit,
+                                      use_cholesky=self.symmetric)
+        return self._dfs(thetas)
+
+    def _dfs(self, thetas) -> Solution:
+        """The per-lane depth-first search (float64 engines only: a float32
+        engine runs the incremental frontier, or raises for a non-symmetric
+        H, so no float64 re-solve follows as on the JAX accelerator)."""
+        return solve_bnb_dfs(self.arrays, thetas, stack_cap=self.stack_cap,
+                             node_limit=self.bnb_node_limit, max_iter=self.iter_limit,
+                             primal_tol=self.primal_tol, sign_tol=self.sign_tol,
+                             use_cholesky=self.symmetric)
 
     # -- shared pieces ------------------------------------------------------
     def _bounds32(self, thetas):
@@ -341,6 +437,13 @@ class SolverEngine:
         one = torch.ones(infeas.shape[0], dtype=torch.int32, device=self.device)
         return torch.where(infeas, -3 * one, torch.where(ok, one, -one))
 
+    def _f64_status(self, infeas, ok, lam):
+        """Status of a float64 re-solve: as ``_status``, but a lane whose
+        multipliers are not finite is unresolved (-1) whatever it flagged. A
+        verdict reached through an overflowed inverse certifies nothing; the
+        compact tier's guard ladder retries such a lane at more capacity."""
+        return torch.where(torch.isfinite(lam).all(1), self._status(infeas, ok), -1)
+
     def _iu_phase1(self, du_t, dl_t, lam0, act0, side0, R0, retry):
         return iu.phase1_iu(self._G32, self._Gs32, du_t, dl_t, self._eq, self._immut,
                             lam0, act0, side0, R0, max_iter=self.bulk_cap,
@@ -397,7 +500,7 @@ class SolverEngine:
             iu.init_R_batch(hi.G_solve, hi.is_eq[None])[0], max_iter=self.bulk_cap + 24,
             primal_tol=self._fix_ptol, sign_tol=1e-11)
         fix = self._fix_solution(th64, idx, lam_f, act_f, side_f, iters[idx] + it_f,
-                                 self._status(inf_f, done_f))
+                                 self._f64_status(inf_f, done_f, lam_f))
         return self._merge(out, idx, fix)
 
     @full_f32()
@@ -535,7 +638,7 @@ class SolverEngine:
                 du_h[idx], dl_h[idx], s2g, self.bulk_cap + 24)
             out = self._merge(out, idx, self._fix_solution(
                 th64, idx, lam_f, act_f, side_f, iters[idx] + it_f,
-                self._status(inf_f, done_f & ~ovf_f)))
+                self._f64_status(inf_f, done_f & ~ovf_f, lam_f)))
             stats["guard"] = idx.numel()
             # the escalating guard ladder for lanes still unresolved
             # (engine.py:877-938); a host-side check in place of lax.cond
@@ -553,7 +656,7 @@ class SolverEngine:
                 lam_g, act_g, side_g, it_g, done_g, inf_g, ovf_g, _s, _R = self._ciu_f64(
                     du_h[idx3], dl_h[idx3], s_g, cap_g)
                 stats["ladder"] += idx3.numel()
-                st3 = self._status(inf_g, done_g & ~ovf_g)
+                st3 = self._f64_status(inf_g, done_g & ~ovf_g, lam_g)
                 take = unres[idx3] & (st3 != -1)
                 if bool(take.any()):
                     idx3 = idx3[take]
@@ -648,6 +751,10 @@ class SolverEngine:
         float64 (only their bulk phase rounds it to float32)."""
         in_dtype = torch.float64 if self.tier else self.dtype
         thetas = torch.as_tensor(thetas, device=self.device).to(in_dtype)
+        if self.lex is not None:
+            return self.lex.solve_batch(thetas)
+        if self.path == "hybrid":
+            return self._hybrid_batch(thetas)
         if self.path == "small":
             return self._tier_batch(thetas, warm)
         if self.path == "iu":
@@ -661,9 +768,14 @@ class SolverEngine:
 
     def solve(self, theta) -> tuple[np.ndarray, float, int, dict]:
         """Single solve (reference solve(), src/utils.jl:268-283): a batch
-        of one through the same path. Returns (U, fval, status, info)."""
+        of one through the same path, except that a float64 branch-and-bound
+        engine solves singles by the depth-first search (engine.py:1434-1442).
+        Returns (U, fval, status, info)."""
         theta = np.asarray(theta, dtype=np.float64).reshape(1, -1)
-        sol = self.solve_batch(theta)
+        if self.path == "hybrid" and self.bnb_mode != "inc":
+            sol = self._dfs(torch.as_tensor(theta, device=self.device))
+        else:
+            sol = self.solve_batch(theta)
         info = {
             "iterations": int(sol.iters[0]),
             "lam": sol.lam[0].cpu().numpy(),

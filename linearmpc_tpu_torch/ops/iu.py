@@ -46,14 +46,18 @@ from . import cuda_lib
 from .bulk import ordered_matvec
 from .dual_active_set import _masked_inverse
 
-# kernel launches (the count a run reads to show the path went through K3)
+# kernel launches (the count a run reads to show the path went through K3),
+# and those of them made through the resumable entry (``step_iu``)
 LAUNCHES = 0
+STEP_LAUNCHES = 0
 
 LANES = 128
 TINY = 1e-30
-# the VMEM budget of the JAX package's K3 lane rule (pallas_iu.py:52); a
-# routing constant here, not a memory limit
+# the VMEM budgets of the JAX package's K3 lane rule: the IU tier's
+# (pallas_iu.py:52) and the hybrid frontier's (engine.py:1286); routing
+# constants here, not memory limits
 VMEM_BUDGET = 12 * 2**20
+FRONTIER_BUDGET = 20 * 2**20
 
 
 class IUState(NamedTuple):
@@ -91,13 +95,15 @@ def gram(ldp, dtype, device) -> tuple[torch.Tensor, torch.Tensor]:
     return G64, Gsolve + 4.0 * np.finfo(np.float64).eps * eye
 
 
-def iu_max_chunk_lanes(m: int) -> int:
+def iu_max_chunk_lanes(m: int, budget: int = VMEM_BUDGET) -> int:
     """The JAX package's VMEM-fit rule for K3 (``pallas_iu.py:52-64``). In
     the port it is a routing rule only: the IU tier takes m where it is at
-    least 128, as the JAX package does on its accelerator."""
+    least 128 with ``VMEM_BUDGET`` (m <= 52), the hybrid frontier with
+    ``FRONTIER_BUDGET`` (m <= 66), as the JAX package does on its
+    accelerator."""
     consts = 3 * (m * m * m) * 4
     per_lane = (7 * m * m + 40 * m) * 4
-    lanes = (VMEM_BUDGET - consts) // per_lane
+    lanes = (budget - consts) // per_lane
     if lanes < LANES:
         return 0
     return min(512, (lanes // LANES) * LANES)
@@ -287,11 +293,17 @@ def _cold_reset(st: dict, flag):
 
 def iterate_iu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
                max_iter: int, primal_tol: float, sign_tol: float,
-               retry_infeas: bool = False) -> IUState:
+               retry_infeas: bool = False, entry=None) -> IUState:
     """The batched GI inverse-update iteration in the dtype of ``du_t``:
     each lane runs until it converges, is flagged infeasible, or has run
     ``max_iter`` iterations, from ``lam0``/``act0``/``side0`` and the
-    carried inverse ``R0`` (B, m, m). ``eq`` is (m,) or per-lane (B, m)."""
+    carried inverse ``R0`` (B, m, m). ``eq`` is (m,) or per-lane (B, m).
+
+    ``entry`` = (pend, pend_side, done, infeas) resumes each lane from that
+    whole state, ``lam0`` taken as it is (a pending row's partial multiplier
+    sits on an inactive row): a lane that enters done runs no iteration,
+    and ``iters`` counts this call's iterations only. Without it every lane
+    starts with no pending row and multipliers zero off the working set."""
     B, m = du_t.shape
     dtype, dev = du_t.dtype, du_t.device
     big, gtol = sentinels(dtype)
@@ -299,14 +311,20 @@ def iterate_iu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
     GsT = Gs.T.contiguous()
     immut = immut.to(dev)
     act0 = act0.to(dev, torch.bool)
+    lam0 = lam0.to(dev, dtype)
+    if entry is None:
+        lam0 = torch.where(act0, lam0, 0.0)
+        entry = (torch.full((B,), -1, dtype=torch.int64, device=dev),
+                 torch.ones(B, dtype=torch.bool, device=dev),
+                 torch.zeros(B, dtype=torch.bool, device=dev),
+                 torch.zeros(B, dtype=torch.bool, device=dev))
+    pend, pend_side, done, infeas = entry
     st = dict(
-        lam=torch.where(act0, lam0.to(dev, dtype), 0.0), act=act0.clone(),
-        side=side0.to(dev, torch.bool).clone(),
-        pend=torch.full((B,), -1, dtype=torch.int64, device=dev),
-        pend_side=torch.ones(B, dtype=torch.bool, device=dev),
+        lam=lam0.clone(), act=act0.clone(), side=side0.to(dev, torch.bool).clone(),
+        pend=pend.to(dev, torch.int64).clone(),
+        pend_side=pend_side.to(dev, torch.bool).clone(),
         iters=torch.zeros(B, dtype=torch.int32, device=dev),
-        done=torch.zeros(B, dtype=torch.bool, device=dev),
-        infeas=torch.zeros(B, dtype=torch.bool, device=dev),
+        done=done.to(dev, torch.bool).clone(), infeas=infeas.to(dev, torch.bool).clone(),
         R=R0.to(dev, dtype).clone(),
         du=du_t, dl=dl_t, eq=eq.to(dev).expand(B, m))
 
@@ -447,3 +465,108 @@ def phase1_iu(G, Gs, du_t, dl_t, eq, immut, lam0, act0, side0, R0, *,
     if du_t.device.type == "cpu":
         return phase1_iu_plain(*args, **kw)
     raise ValueError(f"phase1_iu runs on cuda or cpu tensors, got {du_t.device}")
+
+
+def step_iu_plain(G, Gs, du_t, dl_t, eq, immut, state: IUState, *, K: int,
+                  primal_tol: float, sign_tol: float) -> tuple[IUState, torch.Tensor]:
+    """The resumable K3 step's plain version on any device: at most ``K``
+    iterations a lane from the whole state ``state``; returns the new state
+    and the iterations each lane ran in this call (also its ``iters``)."""
+    st = iterate_iu(G, Gs, du_t, dl_t, eq, immut, state.lam, state.act, state.side,
+                    batch_inverse(state.R, du_t.shape[0]), max_iter=K,
+                    primal_tol=primal_tol, sign_tol=sign_tol,
+                    entry=(state.pend, state.pend_side, state.done, state.infeas))
+    return st, st.iters
+
+
+_STEP_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                  + [ctypes.c_void_p] * 9 + [ctypes.c_longlong] + [ctypes.c_void_p] * 10
+                  + [ctypes.c_int] + [ctypes.c_double] * 4 + [ctypes.c_void_p])
+
+
+def _step_iu_cuda(G, Gs, du_t, dl_t, eq, immut, state: IUState, *, K, primal_tol,
+                  sign_tol):
+    global LAUNCHES, STEP_LAUNCHES
+    B, m = du_t.shape
+    dtype, dev = du_t.dtype, du_t.device
+    eq = eq.to(dev)
+    check_inputs("step_iu kernel", dtype, dev, B, m,
+                 dict(G=(G, (m, m)), Gs=(Gs, (m, m)), dl_t=(dl_t, (B, m)),
+                      lam=(state.lam, (B, m)), R=(batch_inverse(state.R, B), (B, m, m))),
+                 dict(act=(state.act, (B, m)), side=(state.side, (B, m)),
+                      pend=(state.pend, (B,)), pend_side=(state.pend_side, (B,)),
+                      done=(state.done, (B,)), infeas=(state.infeas, (B,)),
+                      immut=(immut, (m,)), eq=(eq, (m,) if eq.dim() == 1 else (B, m))))
+    big, gtol = sentinels(dtype)
+    mask = lambda t: t.to(device=dev, dtype=torch.bool).contiguous()
+    R0, R0_stride = entry_inverse(state.R)
+    ins = [G.T.contiguous(), Gs.T.contiguous(), du_t.contiguous(), dl_t.contiguous(),
+           mask(eq)]
+    ins2 = [mask(immut), state.lam.contiguous(), mask(state.act), mask(state.side),
+            state.pend.to(device=dev, dtype=torch.int32).contiguous(), mask(state.pend_side),
+            mask(state.done), mask(state.infeas), R0]
+    lam = torch.empty((B, m), dtype=dtype, device=dev)
+    act = torch.empty((B, m), dtype=torch.bool, device=dev)
+    side = torch.empty((B, m), dtype=torch.bool, device=dev)
+    pend = torch.empty(B, dtype=torch.int32, device=dev)
+    pend_side = torch.empty(B, dtype=torch.bool, device=dev)
+    iters = torch.empty(B, dtype=torch.int32, device=dev)
+    done = torch.empty(B, dtype=torch.bool, device=dev)
+    infeas = torch.empty(B, dtype=torch.bool, device=dev)
+    R = torch.empty((B, m, m), dtype=dtype, device=dev)
+    work = torch.empty(1, dtype=torch.int32, device=dev)
+    if B > 0:
+        fn = cuda_lib.function("iu", "lmpc_iu_step", _STEP_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(0 if dtype == torch.float32 else 1, m, B,
+                     *(t.data_ptr() for t in ins), 0 if eq.dim() == 1 else m,
+                     *(t.data_ptr() for t in ins2), R0_stride,
+                     *(t.data_ptr() for t in (lam, act, side, pend, pend_side, iters, done,
+                                              infeas, R, work)),
+                     int(K), float(primal_tol), float(sign_tol), gtol, big,
+                     cuda_lib.stream(dev))
+        cuda_lib.check(err, "step_iu kernel launch")
+        LAUNCHES += 1
+        STEP_LAUNCHES += 1
+    st = IUState(lam, act, side, pend.to(torch.int64), pend_side, iters, done, infeas, R)
+    return st, iters
+
+
+def step_iu(G, Gs, du_t, dl_t, eq, immut, state: IUState, *, K: int, primal_tol: float,
+            sign_tol: float) -> tuple[IUState, torch.Tensor]:
+    """At most ``K`` GI iterations a lane from the whole carried state
+    ``state`` (the counterpart of ``make_iu_stepper``, ``pallas_iu.py:
+    393-451``, batch-major, with ``(pend, pend_side)`` in place of its
+    signed one-hot): a lane that enters done runs no iteration and comes
+    back unchanged, ``infeas`` is sticky, there is no infeasibility retry,
+    and ``eq`` may be per lane (B, m). ``state.R`` is (B, m, m) or one
+    (m, m) matrix for every lane. Returns the new state and the iterations
+    each lane ran in this call. On CUDA the kernel's resumable entry runs;
+    on the CPU the plain version does."""
+    kw = dict(K=K, primal_tol=primal_tol, sign_tol=sign_tol)
+    if du_t.device.type == "cuda":
+        return _step_iu_cuda(G, Gs, du_t, dl_t, eq, immut, state, **kw)
+    if du_t.device.type == "cpu":
+        return step_iu_plain(G, Gs, du_t, dl_t, eq, immut, state, **kw)
+    raise ValueError(f"step_iu runs on cuda or cpu tensors, got {du_t.device}")
+
+
+def last_plan() -> dict:
+    """The launch plan the last K3 launch of this thread chose (``csrc/
+    gi_common.cuh``): threads a lane, lanes a block, blocks, matrices staged
+    in shared memory, inverse in shared memory, shared-memory bytes."""
+    out = (ctypes.c_int * 6)()
+    cuda_lib.function("iu", "lmpc_iu_plan", [ctypes.c_void_p])(ctypes.addressof(out))
+    return dict(zip(("team", "lanes_per_block", "blocks", "g_staged", "inv_in_smem",
+                     "smem_bytes"), out))
+
+
+def make_iu_stepper(G, Gs, immut, *, K: int, primal_tol: float, sign_tol: float):
+    """``step(du_l, dl_l, eq_l, state) -> (state, steps)``: ``K`` iterations
+    of ``step_iu`` over (B, m) bounds and equality mask, for callers that own
+    the outer loop (the incremental frontier B&B; ``pallas_iu.py:393``)."""
+    def step(du_l, dl_l, eq_l, state):
+        return step_iu(G, Gs, du_l, dl_l, eq_l, immut, state, K=K, primal_tol=primal_tol,
+                       sign_tol=sign_tol)
+
+    return step

@@ -170,7 +170,8 @@ def test_tier_routes_stragglers_to_f64():
 @pytest.mark.parametrize("case", [
     dict(dtype=torch.float64, name="invpend"),      # exact path: CPU only
     dict(dtype=torch.float32, name="invpend", Np=50, Nc=11),  # m = 11: XLA solve_single
-    dict(dtype=torch.float32, name="satellite"),    # binaries: B&B
+    # binaries at m = 88: the frontier rounds (the satellite, m = 60, runs)
+    dict(dtype=torch.float32, name="invpend_contact", Np=4, Nc=4),
 ])
 def test_cuda_engine_outside_tier_raises(case):
     """A CUDA engine outside the float32 tiers names its ROADMAP item

@@ -17,7 +17,11 @@ the two large-m tiers against the oracle. K3 and K4 are also held against
 their plain versions at ragged batch sizes with one shared entry inverse,
 with a per-lane ``eq``, and on their wide-team paths: K3 in float64 at
 m = 160 (R in global memory) and K4 in float64 at s = 96 (the guard
-ladder's capacity).
+ladder's capacity). K3's resumable entry (``iu.step_iu``) is held against
+its plain step cold in both instantiations at ragged batches and on every
+launch of an incremental-frontier run; the hybrid engine on the card
+against the CPU float64 frontier, and the lexicographic hierarchy on K1's
+float64 instantiation against the CPU ``LexSolver``.
 """
 
 import numpy as np
@@ -453,3 +457,147 @@ def test_small_rollout_step_makes_no_host_sync():
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert bool((out[5] == 1).all())
+
+
+# -- hybrid branch-and-bound and the lexicographic hierarchy on the card ------
+
+def _satellite(B, seed, Np=None):
+    """The satellite's float32 engine on the card (Np = Nc = 20 by default,
+    m = 60, 40 binary rows) and B thetas in +-1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("satellite", *(() if Np is None else (Np, Np)))
+    mpc.setup(device="cuda", dtype=torch.float32)
+    eng = mpc.engine
+    assert eng.path == "hybrid" and eng.bnb_mode == "inc"
+    th = np.random.default_rng(seed).uniform(-1.0, 1.0, (B, eng.ldp.n_theta))
+    return mpc, torch.as_tensor(th, device="cuda")
+
+
+def _step_equal(args, kw):
+    before = iu.STEP_LAUNCHES
+    st_k, it_k = iu.step_iu(*args, **kw)
+    st_p, it_p = iu.step_iu_plain(*args, **kw)
+    assert iu.STEP_LAUNCHES == before + 1
+    _same(tuple(st_k) + (it_k,), tuple(st_p) + (it_p,))
+    return st_k
+
+
+def _cold_step_args(eng, th, dtype, seed):
+    """A K3 step from a cold state on node bounds with a random third of
+    the binary rows clamped to one of their bounds (a per-lane eq)."""
+    arr = eng.arrays if dtype == torch.float32 else eng.arrays_hi
+    G, Gs = iu.gram(eng.ldp, dtype, "cuda")
+    th = th.to(dtype)
+    B, m = th.shape[0], eng.ldp.m
+    du, dl = arr.du + th @ arr.Dth.T, arr.dl + th @ arr.Dth.T
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fixed = (arr.is_binary & arr.up_finite & arr.lo_finite) & (
+        torch.rand((B, m), generator=g, device="cuda") < 0.33)
+    d = torch.where(torch.rand((B, m), generator=g, device="cuda") < 0.5, du, dl)
+    du, dl = torch.where(fixed, d, du), torch.where(fixed, d, dl)
+    zb = torch.zeros((B, m), dtype=torch.bool, device="cuda")
+    st = iu.IUState(torch.zeros((B, m), dtype=dtype, device="cuda"), zb, ~zb,
+                    torch.full((B,), -1, device="cuda"),
+                    torch.ones(B, dtype=torch.bool, device="cuda"),
+                    torch.zeros(B, dtype=torch.int32, device="cuda"), zb[:, 0], zb[:, 0],
+                    torch.eye(m, dtype=dtype, device="cuda"))
+    args = (G, Gs, du.contiguous(), dl.contiguous(), arr.is_eq | fixed, arr.is_immutable, st)
+    return args, dict(K=8, primal_tol=eng.primal_tol, sign_tol=eng.sign_tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B", [1, 17, 512])
+def test_step_kernel_cold_matches_plain(B, dtype):
+    """K3's resumable entry from a cold state with a per-lane eq, in both
+    instantiations and at ragged batches: then from the state it returned
+    (lanes mid-search, some done), three more steps."""
+    mpc, th = _satellite(B, seed=B)
+    args, kw = _cold_step_args(mpc.engine, th, dtype, seed=B)
+    st = _step_equal(args, kw)
+    for _ in range(3):
+        st = _step_equal(args[:-1] + (st,), kw)
+
+
+def test_step_kernel_matches_plain_along_the_frontier():
+    """Every K3 step launch of a 256-lane incremental frontier run, each
+    replayed against the plain step on its recorded inputs (pending rows,
+    branched eq, idle lanes, root-snapshot restarts)."""
+    mpc, th = _satellite(256, seed=31)
+    eng = mpc.engine
+    calls = _record(iu, "step_iu", lambda: eng.solve_batch(th))
+    assert len(calls) > 10
+    n_pend = 0
+    for args, kw in calls:
+        _step_equal(args, kw)
+        n_pend += int((args[-1].pend >= 0).sum())
+    assert n_pend > 0
+
+
+def test_hybrid_engine_on_card_matches_cpu_f64():
+    """The satellite through setup() with no device: the incremental
+    frontier on K3's step entry; statuses and fval (within 1e-6 (1 + |f|))
+    against the CPU float64 frontier, no -1 lane, binaries on a bound."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("satellite")
+    mpc.setup()
+    eng = mpc.engine
+    assert eng.device.type == "cuda" and eng.bnb_mode == "inc"
+    th = np.random.default_rng(32).uniform(-1.0, 1.0, (48, eng.ldp.n_theta))
+    before = iu.STEP_LAUNCHES
+    sol = eng.solve_batch(th)
+    assert iu.STEP_LAUNCHES > before
+    ref_mpc, _ = tmpc.mpc_examples("satellite")
+    ref = ref_mpc.setup(device="cpu").engine.solve_batch(th)
+    st = sol.status.cpu()
+    assert bool((st != -1).all()) and torch.equal(st == 1, ref.status == 1)
+    ok = (st == 1).numpy()
+    f, f_ref = sol.fval.cpu().numpy(), ref.fval.numpy()
+    assert (np.abs(f - f_ref) / (1.0 + np.abs(f_ref)))[ok].max() <= 1e-6
+    nu = mpc.model.nu
+    U = sol.U.cpu().numpy().reshape(len(th), -1, nu)
+    for b in mpc.binary_controls:
+        lo, hi = mpc.umin[b], mpc.umax[b]
+        off = np.minimum(np.abs(U[ok, :, b] - lo), np.abs(U[ok, :, b] - hi))
+        assert off.max() <= 1e-5
+
+
+def test_f32_hybrid_large_m_raises_on_card():
+    """invpend_contact at Np = 4 (m = 88) is past the incremental frontier's
+    routing rule: the float32 engine on the card raises, naming the ROADMAP
+    item of the frontier rounds; it does not run on the CPU instead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend_contact", 4, 4)
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        mpc.setup(device="cuda", dtype=torch.float32)
+
+
+def _lex_bench(device, dtype=None):
+    mpc = tmpc.MPC.from_discrete([[1.0]], [[1.0]], C=[[1.0]], Np=3, Nc=3)
+    mpc.set_bounds(umin=[-5.0], umax=[5.0])
+    mpc.set_objective(Q=[1e-6], R=[1e-6])
+    mpc.add_constraint(Ax=[[1.0]], lb=[1.0], ks=[2, 3], soft=True, prio=0)
+    mpc.add_constraint(Ax=[[1.0]], ub=[-1.0], ks=[2, 3], soft=True, prio=1)
+    mpc.settings.hierarchy = "lexicographic"
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def test_lex_on_card_runs_k1_f64_and_matches_cpu():
+    """The two-level lexicographic bench problem (m = 7) on the card: each
+    level on K1's float64 instantiation with the level's table; U within
+    1e-9 of the CPU LexSolver, every lane status 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc = _lex_bench("cuda", torch.float32)
+    eng = mpc.engine
+    assert eng.path == "lex" and eng.ldp.m == 7
+    th = np.random.default_rng(33).uniform(-2.0, 2.0, (2048, eng.ldp.n_theta))
+    before = bulk.LAUNCHES
+    sol = eng.solve_batch(th)
+    assert bulk.LAUNCHES == before + len(eng.lex.levels)
+    ref = _lex_bench("cpu").engine.solve_batch(th)
+    assert bool((sol.status == 1).all())
+    assert torch.equal(sol.status.cpu(), ref.status)
+    assert (sol.U.cpu() - ref.U).abs().max().item() <= 1e-9

@@ -70,3 +70,33 @@ def test_largem_modules_leave_jax_out():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert math.isfinite(float(out.stdout.split()[-1]))
+
+
+def test_hybrid_and_lex_modules_leave_jax_out():
+    """The branch-and-bound and hierarchy modules imported, a float32
+    hybrid control (the incremental frontier on the plain K3 step) and a
+    lexicographic one computed, without pulling in JAX."""
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import linearmpc_tpu_torch as L\n"
+        "from linearmpc_tpu_torch.ops import bnb, bnb_frontier, hierarchy\n"
+        "mpc, _ = L.mpc_examples('satellite', 6, 6)\n"
+        "mpc.setup(device='cpu', dtype=torch.float32)\n"
+        "assert mpc.engine.bnb_mode == 'inc'\n"
+        "u = mpc.compute_control([0.1, -0.2, 0.05], r=[0.5, 0.0, 0.0])\n"
+        "lex = L.MPC.from_discrete([[1.0]], [[1.0]], C=[[1.0]], Np=3, Nc=3)\n"
+        "lex.set_bounds(umin=[-5.0], umax=[5.0])\n"
+        "lex.add_constraint(Ax=[[1.0]], lb=[1.0], ks=[2, 3], soft=True, prio=0)\n"
+        "lex.add_constraint(Ax=[[1.0]], ub=[-1.0], ks=[2, 3], soft=True, prio=1)\n"
+        "lex.settings.hierarchy = 'lexicographic'\n"
+        "lex.setup(device='cpu')\n"
+        "assert lex.engine.path == 'lex'\n"
+        "print(lex.compute_control([0.0], r=[0.0])[0] + u[1])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'linearmpc_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert math.isfinite(float(out.stdout.split()[-1]))

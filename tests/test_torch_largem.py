@@ -13,6 +13,7 @@ the bar the JAX package holds its fused large-m rollouts to.
 """
 
 import functools
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -268,3 +269,33 @@ def test_cold_entry_inverse_is_one_matrix(path):
     n = eng.ldp.m if path == "iu" else eng.ciu_s_max
     assert tuple(inv.shape) == (64, n, n) and inv.stride(0) == 0
     assert torch.equal(inv[0], torch.eye(n))
+
+
+def test_compact_f64_verdict_needs_finite_multipliers(monkeypatch):
+    """The lane of a cold m = 128 batch (B = 8192, theta in +-10) that came
+    back -3 with NaN controls on the card. Its float64 G and bounds, as the
+    card's host built them (they differ from this machine's by ~1e-15),
+    send the f64 guard (s = 32) to its cap undecided and the ladder's first
+    pass (s = 96) to an infeasibility flag through an overflowed inverse
+    (|Rw| ~ 1e153) with a NaN multiplier. Such a verdict certifies nothing:
+    the lane stays unresolved for the next pass (s = 128), which flags it
+    infeasible with finite multipliers. The JAX package's guard returns -3
+    with finite controls on this lane, and so does the port now."""
+    data = np.load(Path(__file__).parent / "data" / "compact_lane1929.npz")
+    mpc, _ = tmpc.mpc_examples("invpend", 50, 8)
+    eng = _box(mpc, 32).setup(device="cpu", dtype=torch.float32).engine
+    assert eng.path == "compact" and eng.ldp.m == 128
+    G64 = torch.as_tensor(data["G64"])
+    rho = np.asarray(eng.ldp.rho_soft, np.float64)
+    eng._G64 = G64
+    eng._Gs64 = (torch.as_tensor(data["G64"] + np.diag(rho))
+                 + 4.0 * np.finfo(np.float64).eps * torch.eye(128, dtype=torch.float64))
+    bounds = (torch.as_tensor(data["du_h"])[None], torch.as_tensor(data["dl_h"])[None])
+    monkeypatch.setattr(eng, "_bounds64", lambda th64: bounds)
+    # the ladder's first pass alone: the flag with a NaN multiplier
+    out = eng._ciu_f64(*bounds, 96, 2 * eng.bulk_cap + 48)
+    assert bool(out[5][0]) and not bool(torch.isfinite(out[0]).all())
+    sol = eng.solve_batch(data["theta"][None])
+    assert eng.stats["guard"] == 1 and eng.stats["ladder"] == 2
+    assert int(sol.status[0]) == -3
+    assert bool(torch.isfinite(sol.U).all()) and bool(torch.isfinite(sol.lam).all())
