@@ -41,11 +41,26 @@ prioritized MPC, each with the counts set to 0 just before its run:
   against the CPU float64 ``LexSolver`` [20];
 
 then replays the hybrid path's K3 step launches (first, mid-search, last
-round) against the plain step [21], and checks that a float32 hybrid
-problem past the frontier's routing rule raises on the card [22]. Every
-comparison of a kernel with its plain version requires every lane to agree
-and the outputs to be equal bit for bit. Every phase asserts; any failure
-exits non-zero.
+round) against the plain step [21]. Then the paths that run no kernel of
+their own or open new routes, again each counted:
+
+* float32 hybrid at m >= 67 (``invpend_contact`` Np = 4, m = 88, B = 16):
+  the frontier rounds on the float64 node arrays, held against the CPU
+  float64 frontier, with its rounds, syncs a poll, solves/s and a profile;
+  the float64 engine's Cholesky frontier on the same lanes; the JAX bench's
+  contact shape (Np = 6, m = 142, B = 8), each incumbent held against the
+  float64 re-solve of its fixed-binary QP [22];
+* single solves through ``solve_single`` (K1 f32 and f64 for the golden
+  u, K3 and the float64 continuation for an infeasible point, -3), float32
+  at m = 11 and m = 0, the float64 engine on the card, a non-symmetric H,
+  and the B = 1 latency; the single solves' K1 and K3 launches replayed
+  against their plain versions [23];
+
+and last two numbers not measured before: the small-m tier on aircraft at
+its full range, and the lexicographic path at m = 13 against the CPU [24].
+Every comparison of a kernel with its plain version requires every lane to
+agree and the outputs to be equal bit for bit. Every phase asserts; any
+failure exits non-zero.
 Without CUDA it exits 1 and prints no result. The second-to-last line is
 a JSON object with, per kernel, its launches on its path's run (and on
 each path), its error against the plain version, its call and device
@@ -55,6 +70,7 @@ verdict.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -83,9 +99,12 @@ B_ROLL_C, N_ROLL_C = 2048, 300     # compact rollout (bench.py:495)
 LANE_CASE = Path(__file__).resolve().parent / "tests" / "data" / "compact_lane1929.npz"
 B_HYB, HYB_REF = 512, 32  # hybrid satellite batch (bench.py:615), lanes vs CPU f64
 B_LEX, LEX_REF = 8192, 256  # lexicographic batch (bench.py:587), lanes vs CPU f64
+# the contact problem at m = 88 (tests/test_hybrid.py:370-376), lanes vs CPU
+# f64; the JAX bench's contact batch at m = 142 (bench.py:755-760)
+B_CONTACT, CONTACT_REF, B_BENCH_CONTACT = 16, 4, 8
 KERNELS = ("bulk", "polish", "iu", "ciu")
 COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu)  # each module's LAUNCHES
-PATHS = ("small", "iu", "compact", "hybrid", "lex")
+PATHS = ("small", "iu", "compact", "hybrid", "lex", "contact", "single", "exact", "nonsym")
 # the bound of a kernel: its bytes at HBM3's rate and its operations at the
 # card's highest rate for their type (H100 SXM, NVIDIA's data sheet: float32
 # outside the tensor cores, float64 on them)
@@ -165,6 +184,31 @@ def device_profile(label: str, fn, calls: int, unprofiled_ms: float, top: int = 
     for e in kernels[:top]:
         lines.append(f"      {dev_time(e) / calls:8.1f} us/call {100 * dev_time(e) / calls / busy:5.1f}%"
                      f"  x{e.count // calls:<3d} {e.key[:80]}")
+    return "\n".join(lines)
+
+
+def host_profile(label: str, fn, calls: int, top: int = 5) -> str:
+    """Kernel launches per call of ``fn`` (``calls`` calls per run) and the
+    torch operators that take the most host time, from torch.profiler's
+    CPU activity and its CUDA runtime calls (the profiler's own overhead
+    included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
+    ops = sorted((e for e in events if e.key.startswith("aten::")),
+                 key=lambda e: e.self_cpu_time_total, reverse=True)
+    total = sum(e.self_cpu_time_total for e in events)
+    lines = [f"    host profile {label}: {launches / calls:.0f} kernel launches and "
+             f"{total / calls / 1e3:.1f} ms of host time per call (profiled)"]
+    for e in ops[:top]:
+        lines.append(f"      {e.self_cpu_time_total / calls / 1e3:8.3f} ms/call  x{e.count // calls:<5d} "
+                     f"{e.key}")
     return "\n".join(lines)
 
 
@@ -481,9 +525,11 @@ def fmt_ms(x) -> str:
     return "not measured" if x is None else f"{x:.4f} ms"
 
 
-def replay_launches(launches: dict, timed: bool = True):
+def replay_launches(launches: dict, timed: bool = True) -> dict:
     """Each recorded K3/K4 launch (``gi_launches``) against its plain
-    version, then its call time, device time, plain time and bound."""
+    version, then its call time, device time, plain time and bound;
+    returns those numbers by label."""
+    rows = {}
     for label, (fn, args, kw) in launches.items():
         k3 = fn is iu.phase1_iu
         plain = iu.phase1_iu_plain if k3 else ciu.phase1_ciu_plain
@@ -502,6 +548,8 @@ def replay_launches(launches: dict, timed: bool = True):
             f"retry {bool(kw.get('retry_infeas'))}, iterations mean "
             f"{out_k[3].double().mean().item():.3f} max {int(out_k[3].max())}: call {ms:.4f} ms, "
             f"device {fmt_ms(dev_ms)}, plain {ms_p:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        rows[label] = dict(ms=ms, device_ms=dev_ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    return rows
 
 
 def k1_bound(args, out) -> tuple[float, str]:
@@ -886,18 +934,385 @@ def hybrid_lex_phases(dev, by_path: dict) -> tuple[dict, float, dict]:
         step_rows[f"step K=8 m={eng_h.ldp.m} B={B_HYB}, {label}"] = dict(
             ms=ms, device_ms=dev_ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
             launches_per_batch=n_step)
-
-    # [22] float32 hybrid at m >= 67 is not ported: the card's engine raises
-    mpc_cx, _ = L.mpc_examples("invpend_contact", 4, 4)
-    try:
-        mpc_cx.setup()
-        fail("invpend_contact (m = 88) float32 hybrid did not raise")
-    except NotImplementedError as e:
-        log(f"[22] invpend_contact Np=4 float32 hybrid on the card raises "
-            f"NotImplementedError: {e}")
-        check("m=88" in str(e) and "item 6b" in str(e),
-              "the m >= 67 raise does not name m = 88 and the ROADMAP item")
     return step_rows, k3_step_err, lex_rows
+
+
+def contact_mpc(Np: int, device=None, dtype=None):
+    """``invpend_contact`` at Np = Nc (m = 88 at 4, 142 at 6)."""
+    mpc, _ = L.mpc_examples("invpend_contact", Np, Np)
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def fixed_binary_gap(ldp, thetas, lam, fval) -> float:
+    """Each lane's incumbent held against the float64 optimum of its binaries:
+    every binary row fixed on the bound it is nearer (from the incumbent's
+    multipliers ``lam``), the continuous QP re-solved by ``solve_ldp_numpy``.
+    Fails on a lane whose re-solve is not optimal; returns the largest
+    |fval - f_resolved| / (1 + |f_resolved|)."""
+    b = np.asarray(ldp.is_binary)
+    worst = 0.0
+    for th, lm, f in zip(thetas, lam, fval):
+        dt = ldp.Dth @ th
+        c = ldp.G @ lm
+        up = (np.where(ldp.up_finite, ldp.du + dt + c, np.inf)
+              <= np.where(ldp.lo_finite, -(ldp.dl + dt) - c, np.inf))
+        d = np.where(up, ldp.du, ldp.dl)
+        fixed = dataclasses.replace(ldp, du=np.where(b, d, ldp.du), dl=np.where(b, d, ldp.dl),
+                                    is_eq=np.asarray(ldp.is_eq) | b)
+        U, *_rest, status = solve_ldp_numpy(fixed, th, max_iter=5000)
+        check(status == 1, f"the fixed-binary QP of an incumbent: oracle status {status}")
+        f_np = 0.5 * U @ ldp.H @ U + (ldp.f + ldp.f_theta @ th) @ U
+        worst = max(worst, abs(f - f_np) / (1.0 + abs(f_np)))
+    return worst
+
+
+def contact_phases(dev, by_path: dict):
+    """Phase [22]: float32 hybrid at m >= 67, the frontier rounds on the
+    float64 node arrays (torch ops on the card: no kernel computes the
+    masked-Cholesky scheme's loop), with the counts set to 0 just before the
+    m = 88 run and read into ``by_path["contact"]`` just after; beside it the
+    float64 engine's pop-per-round Cholesky frontier on the same lanes, then
+    the JAX bench's contact shape (m = 142)."""
+    mpc_k = contact_mpc(4)
+    eng_k = mpc_k.engine
+    fr = eng_k._rounds
+    check(eng_k.device.type == "cuda" and eng_k.dtype == torch.float32
+          and eng_k.bnb_mode == "rounds", f"contact engine: {eng_k.device} {eng_k.dtype} "
+          f"{getattr(eng_k, 'bnb_mode', None)}")
+    ldp_k = eng_k.ldp
+    log(f"[22] invpend_contact Np=4 float32, m={ldp_k.m}, {int(ldp_k.is_binary.sum())} binary "
+        f"rows, B={B_CONTACT}: the frontier rounds on the float64 node arrays, stack "
+        f"{fr.stack_cap} slots, node cap {fr.node_cap}, {fr.K_CHUNK} iterations a round, a "
+        f"poll every {fr.POLL_EVERY} rounds")
+    th_k = np.random.default_rng(3).uniform(-0.3, 0.3, (B_CONTACT, ldp_k.n_theta))
+    th_k_dev = torch.as_tensor(th_k, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    sol_k = eng_k.solve_batch(th_k_dev)
+    torch.cuda.synchronize()
+    t_counted = 1e3 * (time.perf_counter() - t0)
+    by_path["contact"] = read_counts()
+    s_k, rounds_k = fr.last_state, fr.rounds
+    st_k = sol_k.status.cpu().numpy()
+    U_k = sol_k.U.double().cpu().numpy()
+    found = (st_k == 1) | (st_k == 2)
+    off = binary_offsets(mpc_k, U_k, found)
+    t0 = time.perf_counter()
+    ref_k = contact_mpc(4, "cpu", torch.float64).engine.solve_batch(th_k[:CONTACT_REF])
+    t_ref = time.perf_counter() - t0
+    ok_ref = ref_k.status.numpy() == 1
+    f_k, f_ref = sol_k.fval[:CONTACT_REF].double().cpu().numpy(), ref_k.fval.numpy()
+    rel_f = float((np.abs(f_k - f_ref) / (1.0 + np.abs(f_ref)))[ok_ref].max()) if ok_ref.any() else 0.0
+    same_ok = bool(np.array_equal(st_k[:CONTACT_REF] == 1, ok_ref))
+    log(f"  status 1 {np.mean(st_k == 1):.6f}, 2 {np.mean(st_k == 2):.6f}, -2 "
+        f"{np.mean(st_k == -2):.6f}, -1 {int(np.sum(st_k == -1))} lanes; {rounds_k} rounds, "
+        f"reseeds a lane mean {s_k.reseeds.double().mean().item():.1f} max "
+        f"{int(s_k.reseeds.max())}; binaries off their bound "
+        f"by {off:.3e} at most; first {CONTACT_REF} lanes vs the CPU float64 frontier "
+        f"({t_ref:.1f} s on the host): status 1 on the same lanes {same_ok}, max rel |dfval| "
+        f"{rel_f:.3e}; kernel launches {by_path['contact']} (none computes this loop)")
+    check(sol_k.U.is_cuda, "contact: the solution is not on the card")
+    check(bool(np.all(st_k != -1)), "contact: a lane with status -1")
+    check(bool(np.all(np.isfinite(U_k[found]))), "contact: non-finite controls")
+    check(off <= 1e-5, f"contact: a binary control {off:.3e} off its bound")
+    check(same_ok, "contact: status 1 on other lanes than the CPU float64 frontier")
+    check(rel_f <= 1e-6, f"contact fval vs CPU f64: {rel_f:.3e} > 1e-6")
+
+    # the host syncs of one poll (its rounds and the test that ends it), mid-search
+    held = [fr.init(th_k_dev)]
+
+    def rounds(n):
+        for _ in range(n):
+            held[0], any_active = fr.step(held[0])
+        return any_active
+
+    rounds(40)
+    n_sync = count_syncs(lambda: bool(rounds(fr.POLL_EVERY)))
+    check(n_sync == 1, f"contact: {n_sync} synchronizing calls in one poll, 1 expected")
+    # one timed batch: a second would add a minute of host time to the run
+    ms_round = t_counted / rounds_k
+    prof_k = "\n".join((
+        device_profile(f"contact, {fr.POLL_EVERY} rounds mid-search",
+                       lambda: rounds(fr.POLL_EVERY), fr.POLL_EVERY, ms_round),
+        host_profile(f"contact, {fr.POLL_EVERY} rounds mid-search",
+                     lambda: rounds(fr.POLL_EVERY), fr.POLL_EVERY)))
+    log(f"  timings on {card_line()}: batch {t_counted:.1f} ms (the counted run) = "
+        f"{B_CONTACT / t_counted * 1e3:,.2f} B&B solves/s, {ms_round:.3f} ms a round; "
+        f"mean iterations {sol_k.iters.double().mean().item():.1f}, mean nodes "
+        f"{s_k.nodes.double().mean().item():.1f}; {n_sync} synchronizing call in one poll of "
+        f"{fr.POLL_EVERY} rounds")
+    log(prof_k)
+
+    # the float64 engine on the same lanes: the pop-per-round frontier with
+    # the masked-Cholesky relax, its rounds counted at the relax
+    eng_64 = contact_mpc(4, "cuda", torch.float64).engine
+    check(eng_64.bnb_mode == "frontier", f"contact f64 engine: {eng_64.bnb_mode}")
+    relax, n_relax = eng_64._relax, [0]
+
+    def counted(*a):
+        n_relax[0] += 1
+        return relax(*a)
+
+    eng_64._relax = counted
+    res_64 = []
+    ms_64 = host_ms(lambda: res_64.append(eng_64.solve_batch(th_k_dev)), 1)[0]
+    eng_64._relax = relax
+    st_64 = res_64[0].status[:CONTACT_REF].cpu()
+    f_64 = res_64[0].fval[:CONTACT_REF].cpu().numpy()
+    rel_64 = float((np.abs(f_64 - f_ref) / (1.0 + np.abs(f_ref)))[ok_ref].max()) if ok_ref.any() else 0.0
+    log(f"  float64 engine, pop-per-round frontier with the Cholesky relax, same {B_CONTACT} "
+        f"lanes on the card: {ms_64:.1f} ms a batch, {n_relax[0]} rounds, "
+        f"{ms_64 / n_relax[0]:.3f} ms a round, status 1 "
+        f"{(res_64[0].status == 1).double().mean().item():.6f}; first {CONTACT_REF} lanes "
+        f"statuses equal to the CPU {torch.equal(st_64, ref_k.status)}, max rel |dfval| "
+        f"{rel_64:.3e}")
+    check(torch.equal(st_64, ref_k.status), "contact f64 on the card: statuses")
+    check(rel_64 <= 1e-6, f"contact f64 on the card: fval {rel_64:.3e} off the CPU")
+
+    # the JAX bench's own contact shape (bench.py:755-760): Np = Nc = 6
+    mpc_b = contact_mpc(6)
+    eng_b = mpc_b.engine
+    check(eng_b.bnb_mode == "rounds", f"m=142 engine: {eng_b.bnb_mode}")
+    th_b = np.random.default_rng(7).uniform(-0.3, 0.3, (B_BENCH_CONTACT, eng_b.ldp.n_theta))
+    t0 = time.perf_counter()
+    sol_b = eng_b.solve_batch(torch.as_tensor(th_b, device=dev))
+    torch.cuda.synchronize()
+    t_b = time.perf_counter() - t0
+    st_b = sol_b.status.cpu().numpy()
+    found_b = (st_b == 1) | (st_b == 2)
+    check(bool(np.all(found_b)), f"m=142: lanes without an incumbent, statuses {st_b}")
+    gap_b = fixed_binary_gap(eng_b.ldp, th_b, sol_b.lam.cpu().numpy(), sol_b.fval.cpu().numpy())
+    log(f"  the JAX bench's shape, invpend_contact Np=6 float32, m={eng_b.ldp.m}, "
+        f"{int(eng_b.ldp.is_binary.sum())} binary rows, B={B_BENCH_CONTACT}: status 1 "
+        f"{np.mean(st_b == 1):.4f}, 2 {np.mean(st_b == 2):.4f}, mean iterations "
+        f"{sol_b.iters.double().mean().item():.0f}, {eng_b._rounds.rounds} rounds, {t_b:.2f} s = "
+        f"{B_BENCH_CONTACT / t_b:,.3f} B&B solves/s on {card_line()}; each incumbent vs the "
+        f"float64 re-solve of its fixed-binary QP: max rel |dfval| {gap_b:.3e}")
+    check(gap_b <= 1e-6, f"m=142: an incumbent {gap_b:.3e} off its fixed-binary optimum")
+
+
+def lp_infeasible(mpc, theta) -> bool:
+    """Whether no U meets bl + W theta <= [I; A] U <= bu + W theta: a
+    linear program with a zero objective (HiGHS) reports it infeasible."""
+    from scipy.optimize import linprog
+
+    q = mpc.mpQP
+    E = q.extended_A()
+    up, lo = q.bu + q.W @ theta, q.bl + q.W @ theta
+    fu, fl = np.isfinite(up), np.isfinite(lo)
+    res = linprog(np.zeros(E.shape[1]), A_ub=np.vstack([E[fu], -E[fl]]),
+                  b_ub=np.hstack([up[fu], -lo[fl]]), bounds=(None, None), method="highs")
+    return res.status == 2
+
+
+def double_integrator(device, dtype):
+    """A double integrator with no constraint: m = 0."""
+    mpc = L.MPC.from_discrete([[1.0, 0.1], [0.0, 1.0]], [[0.0], [1.0]], C=np.eye(2), Np=5, Nc=3)
+    mpc.set_objective(Q=[1.0, 1.0], R=[0.1])
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def game_mpc(binary: bool, device, dtype):
+    """Two players with their own objectives (a non-symmetric H,
+    tests/test_torch_hybrid.py's game MPC), player 0's control binary or not."""
+    mpc = L.MPC.from_discrete([[1.0, 0.1], [0, 1]], [[0.0, 0], [1, 1]], C=np.eye(2), Np=3)
+    mpc.set_objective(uids=[0], Q=[1, 0], Rr=1e3 * np.eye(1))
+    mpc.set_objective(uids=[1], Q=[0, 1], Rr=1e3 * np.eye(1))
+    mpc.set_bounds(umin=[0.0, -1.0], umax=[1.0, 1.0])
+    if binary:
+        mpc.set_binary_controls([0])
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def single_phases(dev, by_path: dict) -> tuple[dict, dict]:
+    """Phase [23]: single solves through ``solve_single`` (the golden point,
+    an infeasible one, float32 at m = 11 and m = 0), then the engine paths
+    it opened beside them: the float64 engine on the card and a
+    non-symmetric H in float32. The counts are set to 0 just before each of
+    the three and read just after, into ``by_path["single"]``,
+    ``by_path["exact"]`` and ``by_path["nonsym"]``; then the K1 and K3
+    launches of the single solves are replayed against their plain
+    versions. Returns the replayed rows of K1 and K3."""
+    rng = np.random.default_rng(23)
+    reset_counts()
+    # the golden single solve: K1 f32 bulk phase, K1 f64 continuation
+    mpc, _ = L.mpc_examples("invpend")
+    mpc.setup()
+    eng = mpc.engine
+    k1_u = []
+    k1_calls = record_calls(bulk, "phase1",
+                            lambda: k1_u.append(mpc.compute_control([5.0, 5.0, 0.0, 0.0])))
+    u = k1_u[0]
+    dts = sorted(str(a[2].dtype)[6:] for a, _k in k1_calls)
+    log(f"[23] single solves: golden u = {u[0]:.10f} through solve_single, K1 launches "
+        f"{', '.join(dts)}")
+    check(abs(u[0] - GOLDEN_U) <= 1e-6, f"solve_single golden u {u[0]}")
+    check(dts == ["float32", "float64"], f"golden single solve: K1 launches {dts}")
+
+    # an infeasible point of the m = 48 problem: K3 bulk phase, float64
+    # continuation. The NumPy oracle reports 1 or -1 only (no infeasibility
+    # certificate), so a linear program certifies the point
+    mpc_iu = largem_mpc(12, dev, torch.float32)
+    ths = largem_thetas(rng, 64, 12.0)
+    th_x = next(t for t in ths if lp_infeasible(mpc_iu, t))
+    res = []
+    k3_calls = record_calls(iu, "phase1_iu", lambda: res.append(mpc_iu.solve(th_x)))
+    U_x, _f, st_x, _info = res[0]
+    log(f"  infeasible point at m={mpc_iu.engine.ldp.m} (no U meets the constraints: HiGHS; "
+        f"the NumPy oracle's status {solve_ldp_numpy(mpc_iu.engine.ldp, th_x)[-1]}): MPC.solve "
+        f"status {st_x}, controls finite {bool(np.isfinite(U_x).all())}, K3 launches "
+        f"{len(k3_calls)}")
+    check(st_x == -3 and np.isfinite(U_x).all(), f"infeasible single solve: status {st_x}")
+    check(len(k3_calls) == 1, f"infeasible single solve: {len(k3_calls)} K3 launches")
+
+    # float32 at m = 11 (batched solve_single: no kernel computes its loop)
+    case11 = ("invpend", 50, 11)
+    mpc11, _ = L.mpc_examples(*case11)
+    eng11 = mpc11.setup().engine
+    th11 = sample_thetas(case11, rng, 256)
+    sol11 = eng11.solve_batch(torch.as_tensor(th11, device=dev))
+    e11, wrong11, dec11 = oracle_error(eng11.ldp, th11, sol11.U.cpu().numpy(),
+                                       sol11.status.cpu().numpy())
+    log(f"  float32 m={eng11.ldp.m} ({eng11.path}), B=256: {status_line(sol11)}; max |U - "
+        f"U_oracle| {e11:.3e}, {wrong11} of {dec11} oracle verdicts contradicted")
+    check(eng11.path == "single" and e11 <= 1e-9 and wrong11 == 0, f"m=11: error {e11:.3e}")
+
+    # float32 at m = 0: the closed form
+    eng0 = double_integrator(None, torch.float32).engine
+    th0 = rng.uniform(-1.0, 1.0, (256, eng0.ldp.n_theta))
+    sol0 = eng0.solve_batch(torch.as_tensor(th0, device=dev))
+    U0_np = th0 @ eng0.ldp.Uth_off.T + eng0.ldp.u_off
+    e0 = float(np.abs(sol0.U.cpu().numpy() - U0_np).max())
+    log(f"  float32 m={eng0.ldp.m} ({eng0.path}), B=256: status 1 "
+        f"{(sol0.status == 1).double().mean().item():.6f}, max |U - U_closed_form| {e0:.3e}")
+    check(bool((sol0.status == 1).all()) and e0 <= 1e-9, f"m=0: error {e0:.3e}")
+    torch.cuda.synchronize()
+    by_path["single"] = read_counts()
+    log(f"    single-solve path launches: {by_path['single']}")
+    check(by_path["single"] == dict(bulk=len(k1_calls), polish=0, iu=len(k3_calls), ciu=0),
+          "single solves: launches other than the golden solve's K1 and the infeasible "
+          "point's K3")
+
+    # the float64 engine on the card: invpend (K1 f64) and the m = 48 box
+    # problem (the masked Cholesky loop as torch ops)
+    reset_counts()
+    for label, mk, B, n_ref in (
+            ("invpend", lambda: L.mpc_examples("invpend")[0].setup(device=dev, dtype=torch.float64),
+             4096, N_ORACLE),
+            ("the m=48 box", lambda: largem_mpc(12, dev, torch.float64), 256, 256)):
+        mpc64 = mk()
+        eng64 = mpc64.engine
+        th64 = (sample_thetas(("invpend", None, None), rng, B) if label == "invpend"
+                else largem_thetas(rng, B, 12.0))
+        k1_before = bulk.LAUNCHES
+        sol64 = eng64.solve_batch(torch.as_tensor(th64, device=dev))
+        e64, wrong64, dec64 = oracle_error(eng64.ldp, th64[:n_ref], sol64.U[:n_ref].cpu().numpy(),
+                                           sol64.status[:n_ref].cpu().numpy())
+        log(f"  float64 engine on the card, {label} (m={eng64.ldp.m}, {eng64.path}), B={B}: "
+            f"{status_line(sol64)}; over {n_ref} lanes max |U - U_oracle| {e64:.3e}, {wrong64} of "
+            f"{dec64} oracle verdicts contradicted; K1 f64 launches +{bulk.LAUNCHES - k1_before}")
+        check(sol64.U.is_cuda and sol64.U.dtype == torch.float64, f"f64 {label}: not on the card")
+        check(bool((sol64.status != -1).all()), f"f64 {label}: a lane with status -1")
+        check(e64 <= 1e-9 and wrong64 == 0, f"f64 {label}: error {e64:.3e}, {wrong64} verdicts")
+        check((bulk.LAUNCHES > k1_before) == (eng64.ldp.m <= bulk.MAX_M),
+              f"f64 {label}: K1 launches")
+
+    torch.cuda.synchronize()
+    by_path["exact"] = read_counts()
+    log(f"    float64 engine launches: {by_path['exact']}")
+    check(by_path["exact"]["bulk"] > 0, "float64 engine: K1 f64 was never launched")
+
+    # a non-symmetric H in float32, without and with its binary control,
+    # against the port's CPU float64 engine
+    reset_counts()
+    for binary in (False, True):
+        mpc_g = game_mpc(binary, None, torch.float32)
+        eng_g = mpc_g.engine
+        th_g = np.stack([mpc_g.form_parameter(rng.uniform(-2, 2, 2), r=rng.uniform(-1, 1, 2))
+                         for _ in range(64)])
+        sol_g = eng_g.solve_batch(torch.as_tensor(th_g, device=dev))
+        ref_g = game_mpc(binary, "cpu", torch.float64).engine.solve_batch(th_g)
+        dU_g = (sol_g.U.double().cpu() - ref_g.U).abs().max().item()
+        tol = 1e-7 if binary else 1e-9
+        log(f"  non-symmetric H float32{' with a binary control' if binary else ''} "
+            f"({eng_g.path}{', ' + eng_g.bnb_mode if binary else ''}), B=64: status 1 "
+            f"{(sol_g.status == 1).double().mean().item():.6f}, vs the CPU float64 engine: "
+            f"statuses equal {torch.equal(sol_g.status.cpu(), ref_g.status)}, max |dU| {dU_g:.3e}")
+        check(torch.equal(sol_g.status.cpu(), ref_g.status) and dU_g <= tol,
+              f"non-symmetric H (binary {binary}): |dU| {dU_g:.3e}")
+    torch.cuda.synchronize()
+    by_path["nonsym"] = read_counts()
+    log(f"    non-symmetric H launches: {by_path['nonsym']}")
+    check(by_path["nonsym"]["bulk"] > 0 and by_path["nonsym"]["polish"] > 0,
+          "non-symmetric H: the small-m tier's K1 or K2 was never launched")
+
+    # the B = 1 latency of compute_control: solve_single against the tier
+    # at B = 1 (the route of single solves before)
+    x0 = [5.0, 5.0, 0.0, 0.0]
+    th1 = torch.as_tensor(mpc.form_parameter(np.array(x0))[None], device=dev)
+    lat_single = host_ms(lambda: mpc.compute_control(x0), 20)
+    lat_tier = host_ms(lambda: eng.solve_batch(th1), 20)
+    log(f"  B=1 latency on {card_line()}: compute_control through solve_single median "
+        f"{np.median(lat_single):.3f} ms (min {min(lat_single):.3f}); the tier at B=1 median "
+        f"{np.median(lat_tier):.3f} ms (min {min(lat_tier):.3f})")
+
+    log("    the single solves' K1 and K3 launches, replayed: vs plain, call / device / plain "
+        "time, bound")
+    k1_rows = replay_small({f"K1 single solve {str(a[2].dtype)[6:]} B=1": (bulk.phase1, a, k)
+                            for a, k in k1_calls})["K1"]
+    k3_rows = replay_launches({"K3 single solve f32 B=1": (iu.phase1_iu, *k3_calls[0])})
+    return k1_rows, k3_rows
+
+
+def unmeasured_phases(dev):
+    """Phase [24], two numbers of the port never measured on the card: the
+    small-m tier's converged fraction on aircraft at its full range (x, d in
+    +-20), and the lexicographic path past K1's table (m = 13, each level
+    the plain float64 loop as torch ops) against the CPU ``LexSolver``."""
+    case = ("aircraft", None, None)
+    mpc_a, _ = L.mpc_examples(*case)
+    eng_a = mpc_a.setup().engine
+    th_a = sample_thetas(case, np.random.default_rng(24), B_COLD)
+    sol_a = eng_a.solve_batch(torch.as_tensor(th_a, device=dev))
+    st_a = sol_a.status[:N_ORACLE].cpu().numpy()
+    U_a = sol_a.U[:N_ORACLE].cpu().numpy()
+    oracle = [solve_ldp_numpy(eng_a.ldp, t) for t in th_a[:N_ORACLE]]
+    both = [i for i, o in enumerate(oracle) if o[-1] == 1 and st_a[i] == 1]
+    e_a = max((float(np.abs(U_a[i] - oracle[i][0]).max()) for i in both), default=0.0)
+    log(f"[24] aircraft tier (m={eng_a.ldp.m}, {eng_a.path}) at its full range, B={B_COLD}: "
+        f"{status_line(sol_a)}, mean iterations {sol_a.iters.double().mean().item():.2f}; of "
+        f"the first {N_ORACLE} lanes the oracle solves {sum(o[-1] == 1 for o in oracle)}, the "
+        f"tier {int((st_a == 1).sum())}, both {len(both)}: max |U - U_oracle| there {e_a:.3e}")
+    check(bool(torch.isfinite(sol_a.U[sol_a.status == 1]).all()), "aircraft: non-finite controls")
+
+    def lex13(device):
+        mpc = L.MPC.from_discrete([[1.0]], [[1.0]], C=[[1.0]], Np=5, Nc=5)
+        mpc.set_bounds(umin=[-5.0], umax=[5.0])
+        mpc.set_objective(Q=[1e-6], R=[1e-6])
+        mpc.add_constraint(Ax=[[1.0]], lb=[1.0], ks=range(2, 6), soft=True, prio=0)
+        mpc.add_constraint(Ax=[[1.0]], ub=[-1.0], ks=range(2, 6), soft=True, prio=1)
+        mpc.settings.hierarchy = "lexicographic"
+        return mpc.setup(device=device).engine
+
+    eng_l, ref_l = lex13(None), lex13("cpu")
+    check(eng_l.path == "lex" and eng_l.ldp.m > bulk.MAX_M, f"lex m={eng_l.ldp.m}")
+    th_l = np.random.default_rng(34).uniform(-2.0, 2.0, (1024, eng_l.ldp.n_theta))
+    th_l_dev = torch.as_tensor(th_l, device=dev)
+    k1_before = bulk.LAUNCHES
+    sol_l = eng_l.solve_batch(th_l_dev)
+    sol_r = ref_l.solve_batch(th_l)
+    dU_l = (sol_l.U.cpu() - sol_r.U).abs().max().item()
+    ms_l = host_ms(lambda: eng_l.solve_batch(th_l_dev), 3)
+    ms_r = host_ms(lambda: ref_l.solve_batch(th_l), 3)
+    log(f"  lexicographic m={eng_l.ldp.m}, {len(eng_l.lex.levels)} levels, B=1024 on "
+        f"{card_line()}: status 1 {(sol_l.status == 1).double().mean().item():.6f}, vs the CPU "
+        f"LexSolver: statuses equal {torch.equal(sol_l.status.cpu(), sol_r.status)}, max |dU| "
+        f"{dU_l:.3e}; {min(ms_l):.3f} ms a batch on the card, {min(ms_r):.3f} ms on the host; "
+        f"K1 launches +{bulk.LAUNCHES - k1_before}")
+    # its weights (1e-6 against soft weights 1e6) put U's round-off floor
+    # near 1e-9: the card's cuSOLVER and the host's LAPACK differ there
+    check(torch.equal(sol_l.status.cpu(), sol_r.status) and dU_l <= 1e-8,
+          f"lex m=13 vs CPU: |dU| {dU_l:.3e}")
 
 
 def main() -> int:
@@ -1259,6 +1674,9 @@ def main() -> int:
         f"{B_COLD} under 'warn': {n_sync} synchronizing calls")
 
     step_rows, k3_step_err, lex_rows = hybrid_lex_phases(dev, by_path)
+    contact_phases(dev, by_path)
+    single_k1_rows, single_k3_rows = single_phases(dev, by_path)
+    unmeasured_phases(dev)
 
     # the counts of each kernel on each path's run
     per_path = lambda k: {p: by_path[p][k] for p in PATHS}
@@ -1271,7 +1689,7 @@ def main() -> int:
          "launches": launches["bulk"], "launches_by_path": per_path("bulk"),
          "max_abs_err": k1_err, "ms": ms_k1, "device_ms": dev_k1, "plain_ms": ms_k1p,
          "bound_ms": b_k1[0], "bound_by": b_k1[1], "library_ms": None,
-         "launch_shapes": {**small_rows["K1"], **lex_rows}},
+         "launch_shapes": {**small_rows["K1"], **lex_rows, **single_k1_rows}},
         {"name": "K2 polish", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/polish.cu",
          "replaces": "linearmpc_tpu/ops/pallas_polish.py:144",
@@ -1285,7 +1703,7 @@ def main() -> int:
          "launches": launches["iu"], "launches_by_path": per_path("iu"),
          "max_abs_err": max(k3_err, k3_step_err), "ms": ms_k3, "device_ms": dev_k3,
          "plain_ms": ms_k3p, "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "library_ms": None, "launch_shapes": step_rows},
+         "library_ms": None, "launch_shapes": {**step_rows, **single_k3_rows}},
         {"name": "K4 compact GI", "route": "cuda",
          "source": "linearmpc_tpu_torch/csrc/ciu.cu",
          "replaces": "linearmpc_tpu/ops/pallas_ciu.py:113",

@@ -2,14 +2,19 @@
 
 Linear Model Predictive Control on an NVIDIA GPU: condensation of
 constrained tracking MPC into dense multi-parametric QPs (host NumPy),
-a batched dual active-set solver whose small-m tier runs on two
-hand-written CUDA kernels (``ops/bulk.py``, ``ops/polish.py``), closed-loop
+and a batched dual active-set solver (``ops/engine.py``) with every solve
+path of the JAX package's engine: the exact float64 path, the small-m,
+IU and compact float32 tiers on four hand-written CUDA kernels (K1
+``ops/bulk.py``, K2 ``ops/polish.py``, K3 ``ops/iu.py``, K4
+``ops/ciu.py``), batched ``solve_single`` for single solves and the
+float32 fallbacks, hybrid branch-and-bound (the node frontiers and the
+depth-first search) and the lexicographic hierarchy. Around it: closed-loop
 simulation and batched rollout, and Kalman / offset-free observers.
 
 The package imports torch and NumPy only, never ``jax`` or
-``linearmpc_tpu``. Modules of the JAX package not ported yet (explicit,
-certify, invariant, codegen, checkpoint, profiling, plotting, parallel,
-statespace, hybrid and the large-m tiers) are listed in ROADMAP.md.
+``linearmpc_tpu``. Modules of the JAX package not ported yet (lp_ipm,
+explicit, certify, invariant, lp_cert, statespace, checkpoint, codegen,
+native_runtime, plotting, profiling, parallel) are listed in ROADMAP.md.
 """
 
 from .condense import (

@@ -5,7 +5,7 @@ Port of ``linearmpc_tpu/ops/bnb.py`` (``solve_bnb_single``, ``:52-188``),
 the analog of DAQP's MIQP branch-and-bound. A binary constraint must hold
 with equality at its upper or lower bound; each node fixes a subset of
 binary rows to one bound and solves the relaxation with those rows forced
-(``dual_active_set.solve_batch`` with ``forced_mask``/``forced_side``).
+(``dual_active_set.solve_single`` with ``forced_mask``/``forced_side``).
 
 The JAX package ``vmap``s one lane's ``while_loop``; here the batch is
 written out: every lane keeps its own node stack and top, and each pass
@@ -17,15 +17,16 @@ one last (explored next). Children are warm-started from the parent
 relaxation's multipliers and working set, which changes iteration counts,
 never solutions.
 
-The engine runs this search for single solves of a float64 engine and for
-a non-symmetric H (``engine.py:1257-1279``, ``:1441-1442``, ``:1475``).
+The engine runs this search for single solves outside the float32
+incremental frontier and for a non-symmetric H (``engine.py:1257-1279``,
+``:1441-1442``, ``:1475``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from .dual_active_set import LDPArrays, Solution, solve_batch
+from .dual_active_set import LDPArrays, Solution, solve_single
 
 
 # the finite "infinite" sentinel of the B&B paths in both dtypes: it
@@ -73,7 +74,7 @@ def solve_bnb_dfs(arr: LDPArrays, thetas, *, stack_cap: int = 64, node_limit: in
         fixed, fside = s_fixed[run, t], s_side[run, t]
         warm = ((s_lam[run, t], s_act[run, t], s_ws[run, t]) if warm_nodes
                 else (None, None, None))
-        sol = solve_batch(arr, th[run], *warm, max_iter=max_iter, primal_tol=primal_tol,
+        sol = solve_single(arr, th[run], *warm, max_iter=max_iter, primal_tol=primal_tol,
                           sign_tol=sign_tol, use_cholesky=use_cholesky,
                           forced_mask=fixed, forced_side=fside)
         feasible = sol.status > 0

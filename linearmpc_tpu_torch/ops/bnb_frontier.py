@@ -3,9 +3,9 @@
 Port of ``linearmpc_tpu/ops/bnb_frontier.py`` (``FrontierState``,
 ``make_xla_relax``, ``make_pallas_relax`` as ``make_kernel_relax``,
 ``solve_bnb_frontier``, ``IncState``, ``solve_bnb_frontier_inc`` as
-``IncFrontier``, ``_refined_polish`` as ``refined_polish``;
-``:52-818``). Every lane keeps its own depth-first node stack; a round
-advances every lane at once:
+``IncFrontier``, ``_refined_polish`` as ``refined_polish``, ``ChunkState``
+and ``make_frontier_rounds`` as ``FrontierRounds``). Every lane keeps its
+own node stack; a round advances every lane at once:
 
 * ``solve_bnb_frontier`` pops one node per lane and solves the whole
   frontier of node relaxations as one batched dual active-set solve (the
@@ -21,7 +21,16 @@ advances every lane at once:
   branches or prunes the lanes whose relaxation converged. At a branch the
   near child continues the parent's state in place (only the branched row
   clamps); a backtrack pop restarts from the root relaxation's snapshot.
-  This is the engine's float32 hybrid path.
+  This is the engine's float32 hybrid path where K3's routing rule admits
+  m (m <= 66).
+* ``FrontierRounds`` keeps each lane's current node relaxation (the
+  masked-Cholesky scheme with a carried Woodbury-updated inverse,
+  ``dual_active_set._active_set_loop_wu``) across bounded rounds of
+  24 iterations, with best-first node selection: the float32
+  engine's path beyond that rule, on the float64 node arrays. It is the
+  JAX engine's path for these problems on its accelerator, and its
+  best-first order and its capped status (2) are part of the result, so
+  the port runs the rounds rather than the float64 frontier.
 
 Management runs in the engine dtype, in float32 under the engine's
 ``full_f32`` (the JAX package's ``Precision.HIGHEST``). The status rules
@@ -50,8 +59,13 @@ from .dual_active_set import (
     LDPArrays,
     Solution,
     _active_set_loop,
+    _active_set_loop_wu,
+    _bmv,
     _primal_feasible,
+    masked_system,
+    newton_schulz,
     polish_solution,
+    woodbury_rank2,
 )
 
 
@@ -545,6 +559,361 @@ class IncFrontier:
         s = self.init(thetas)
         while self.running(s):
             s = self.round(s)
+        return self.finish(s)
+
+
+class ChunkState(NamedTuple):
+    """The frontier rounds' state (batch-major): the current node's
+    relaxation lives across rounds."""
+
+    stack_fixed: torch.Tensor  # (B, cap, m) bool
+    stack_side: torch.Tensor   # (B, cap, m) bool
+    stack_lam: torch.Tensor    # (B, cap, m)
+    stack_act: torch.Tensor    # (B, cap, m) bool
+    stack_ws: torch.Tensor     # (B, cap, m) bool
+    stack_bound: torch.Tensor  # (B, cap)
+    stack_R: torch.Tensor      # (B, cap, m, m) float32: the parent's maintained
+    #   inverse ((B, 1, 1, 1) in the reference mode)
+    occ: torch.Tensor          # (B, cap) bool open-node occupancy ((B, 1) in
+    #   the reference mode, where ``top`` is the stack)
+    top: torch.Tensor          # (B,) int64 (the open-node count, best-first)
+    cur_fixed: torch.Tensor    # (B, m) bool: the current node's fixed binaries
+    cur_fside: torch.Tensor    # (B, m) bool
+    lam: torch.Tensor          # (B, m) the current relaxation's state
+    act: torch.Tensor          # (B, m) bool
+    side: torch.Tensor         # (B, m) bool
+    R: torch.Tensor            # (B, m, m) the carried ridged masked inverse
+    #   ((B, 1, 1) in the reference mode)
+    node_iter: torch.Tensor    # (B,) int32
+    active_node: torch.Tensor  # (B,) bool
+    inc_fval: torch.Tensor     # (B,)
+    inc_lam: torch.Tensor      # (B, m)
+    inc_active: torch.Tensor   # (B, m) bool
+    inc_side: torch.Tensor     # (B, m) bool
+    inc_found: torch.Tensor    # (B,) bool
+    nodes: torch.Tensor        # (B,) int32
+    iters: torch.Tensor        # (B,) int32
+    exhausted: torch.Tensor    # (B,) bool: a node pruned unconverged or infeasible
+    capped: torch.Tensor       # (B,) bool: the search hit a budget (status 2)
+    reseeds: torch.Tensor      # (B,) int32: drift-certificate reseeds
+
+
+class FrontierRounds:
+    """Branch-and-bound in bounded rounds over masked-Cholesky-scheme node
+    relaxations (``make_frontier_rounds``, ``bnb_frontier.py:866-1380``):
+    the float32 engine's path at m >= 67, run on the float64 node arrays,
+    as the JAX engine runs it on its accelerator (``engine.py:1328-1385``).
+
+    A round advances every lane by at most ``K_CHUNK`` relaxation
+    iterations, then branches, prunes and updates incumbents for the lanes
+    whose node converged and pops a node for idle ones; it makes no host
+    sync. ``solve`` blocks once every ``POLL_EVERY`` rounds, on whether any
+    lane is still searching. The node relaxations run
+    ``_active_set_loop_wu``: the ridged masked inverse (ridge ``max(100 m
+    eps, 1e-8)``, the same in the seeds, the transitions and the loop) is
+    carried across rounds and, in float32, through the stack for the far
+    children, aligned at pops and branches by a rank-2 Woodbury add, and a
+    per-round drift certificate ``max|I - M R|`` reseeds flagged lanes with
+    a factorization (computed for every lane and selected, so the round
+    needs no host decision). Nodes are popped best-first: the open node of
+    least bound once an incumbent exists, deepest first before and when the
+    open list nears capacity; a push that finds no free slot marks the lane
+    capped (status 2). ``reference=True`` swaps both for the masked-Cholesky
+    loop and the depth-first stack, and then the rounds reproduce
+    ``solve_bnb_frontier`` with the Cholesky relax bit for bit (a check of
+    the rounds' management, not a path of the engine).
+
+    The best-first order and the capped status are part of the result
+    (which incumbent of equal value wins, and the 1-versus-2 split), so the
+    port keeps the rounds rather than running the float64 frontier.
+    Deliberate difference: the reference clamps the float32 inverse stack
+    at 1 GiB with a floor of 4 slots (``bnb_frontier.py:1326-1330``), below
+    the depth-first bound nb + 1, which demotes lanes to status 2 by batch
+    size; here the stack always holds ``stack_cap`` slots (an allocation
+    the card cannot hold raises), so the result is a function of the
+    inputs alone."""
+
+    # the drift certificate's bound on max|I - M R|
+    DRIFT_TOL = 1e-2
+    # the loop's staleness gate stays off, as in the reference
+    # (``bnb_frontier.py:918-922``): the certificate catches a degraded R
+    STALE_TOL = 1e30
+    # the JAX accelerator's round (engine.py:1328-1385): relaxation
+    # iterations a round, rounds a host poll
+    K_CHUNK = 24
+    POLL_EVERY = 4
+
+    def __init__(self, arr: LDPArrays, arr_hi: LDPArrays | None, *, stack_cap: int = 64,
+                 node_limit: int = 1024, node_cap: int = 512, primal_tol: float = 1e-6,
+                 sign_tol: float = 1e-11, use_cholesky: bool = True, reference: bool = False):
+        self.arr, self.arr_hi = arr, arr_hi
+        self.stack_cap, self.node_limit, self.node_cap = stack_cap, node_limit, node_cap
+        self.primal_tol, self.sign_tol = primal_tol, sign_tol
+        self.use_cholesky, self.reference = use_cholesky, reference
+        dtype, dev = arr.G.dtype, arr.G.device
+        m = arr.G.shape[0]
+        self.nb = int(arr.is_binary.sum())
+        # 1e-8 bounds ||R|| (G has a unit diagonal) and with it the Woodbury
+        # round-off on degenerate working sets (bnb_frontier.py:949-964)
+        self.ridge = max(100.0 * m * float(torch.finfo(dtype).eps), 1e-8)
+        self.eye = torch.eye(m, dtype=dtype, device=dev)
+        self.Gsr = arr.G_solve + self.ridge * self.eye
+        self.idx = torch.arange(m, device=dev)
+        self.branchable_rows = (arr.is_binary & ~arr.is_immutable
+                                & (arr.up_finite | arr.lo_finite))
+        self.last_state: ChunkState | None = None
+        self.rounds = 0
+
+    def seed_R(self, act):
+        """A factorization of each lane's ridged masked system: batched
+        Cholesky and two Newton-Schulz passes. A system that is not positive
+        definite gives NaN, as ``jnp.linalg.cholesky`` does."""
+        M0 = masked_system(self.Gsr, act.to(self.Gsr.dtype))
+        L, info = torch.linalg.cholesky_ex(M0)
+        R0 = torch.cholesky_solve(self.eye.expand_as(M0), L)
+        R0 = torch.where((info != 0)[:, None, None], torch.nan, R0)
+        for _ in range(2):
+            R0 = torch.bmm(R0, 2.0 * self.eye - torch.bmm(M0, R0))
+        return R0
+
+    def wu_add(self, R, act_new, oh, do):
+        """Rank-2 Woodbury add of the one-hot row ``oh`` (already in
+        ``act_new``) into the ridged masked inverse and one Newton-Schulz
+        pass, the in-loop update's add case; lanes where ``do`` is False
+        keep R."""
+        dtype = R.dtype
+        ohf, af = oh.to(dtype), act_new.to(dtype)
+        Gcol = ohf @ self.Gsr.T
+        vcol = af * (1.0 - ohf) * Gcol
+        Re, Rv = _bmv(R, ohf), _bmv(R, vcol)
+        R_new = woodbury_rank2(R, Re, Rv, vcol, (ohf * Re).sum(1), (ohf * Rv).sum(1),
+                               (ohf * Gcol).sum(1), torch.zeros_like(do))
+        return torch.where(do[:, None, None], newton_schulz(self.Gsr, af, R_new, self.eye), R)
+
+    def init(self, thetas) -> ChunkState:
+        arr = self.arr
+        dtype, dev = arr.G.dtype, arr.G.device
+        self.thetas = thetas = torch.as_tensor(thetas, device=dev)
+        B, m = thetas.shape[0], arr.G.shape[0]
+        self.du_t, self.dl_t, self.U0, self.f_t = _theta_terms(arr, thetas)
+        self.bidx = torch.arange(B, device=dev)
+        act0 = arr.is_eq.expand(B, m).clone()
+        cap = self.stack_cap
+        if self.reference:
+            R0 = torch.zeros((B, 1, 1), dtype=dtype, device=dev)
+            stack_R = torch.zeros((B, 1, 1, 1), dtype=torch.float32, device=dev)
+        else:
+            R0 = self.seed_R(act0)
+            stack_R = torch.zeros((B, cap, m, m), dtype=torch.float32, device=dev)
+        zb = lambda *s: torch.zeros(s, dtype=torch.bool, device=dev)
+        zi = lambda: torch.zeros(B, dtype=torch.int32, device=dev)
+        return ChunkState(
+            stack_fixed=zb(B, cap, m), stack_side=zb(B, cap, m),
+            stack_lam=torch.zeros((B, cap, m), dtype=dtype, device=dev),
+            stack_act=zb(B, cap, m),
+            stack_ws=torch.ones((B, cap, m), dtype=torch.bool, device=dev),
+            stack_bound=torch.full((B, cap), -BIG, dtype=dtype, device=dev),
+            stack_R=stack_R, occ=zb(B, 1 if self.reference else cap),
+            top=torch.zeros(B, dtype=torch.int64, device=dev),
+            cur_fixed=zb(B, m), cur_fside=zb(B, m),
+            lam=torch.zeros((B, m), dtype=dtype, device=dev), act=act0,
+            side=torch.ones((B, m), dtype=torch.bool, device=dev), R=R0,
+            node_iter=zi(), active_node=torch.ones(B, dtype=torch.bool, device=dev),
+            inc_fval=torch.full((B,), BIG, dtype=dtype, device=dev),
+            inc_lam=torch.zeros((B, m), dtype=dtype, device=dev),
+            inc_active=zb(B, m), inc_side=zb(B, m), inc_found=zb(B),
+            nodes=torch.ones(B, dtype=torch.int32, device=dev), iters=zi(),
+            exhausted=zb(B), capped=zb(B), reseeds=zi())
+
+    def step(self, s: ChunkState) -> tuple[ChunkState, torch.Tensor]:
+        """One round: pop a node for idle lanes, at most ``K_CHUNK``
+        relaxation iterations of every lane, then the management of the
+        lanes whose node converged or failed. The stacks are updated in
+        place. Returns the new state and ``any_active`` (a device bool)."""
+        arr, big, bidx = self.arr, BIG, self.bidx
+        dtype = arr.G.dtype
+        du_t, dl_t = self.du_t, self.dl_t
+        cap = s.stack_bound.shape[1]
+        pos = lambda t: t.to(torch.int32)
+
+        # ---- bound-prune the open nodes, then pop one for idle lanes
+        if not self.reference:
+            occ = s.occ & ~(s.inc_found[:, None] & (s.stack_bound >= s.inc_fval[:, None]))
+            can_pop = ~s.active_node & occ.any(1) & (s.nodes < self.node_limit)
+            # least bound once an incumbent prunes, deepest first before it
+            # and while the open list nears capacity (deep subtrees drain
+            # the slots soonest)
+            margin = min(cap - 1, self.nb + 2)
+            key_bound = torch.where(occ, s.stack_bound, big)
+            key_depth = torch.where(occ, s.stack_fixed.sum(2), -1)
+            room = occ.sum(1) < cap - margin
+            pidx = torch.where(s.inc_found & room, key_bound.argmin(1), key_depth.argmax(1))
+            occ[bidx, pidx] = occ[bidx, pidx] & ~can_pop
+            top = occ.sum(1)
+        else:
+            occ = s.occ
+            top = prune_tops(s.top, s.inc_found, s.inc_fval, s.stack_bound)
+            can_pop = ~s.active_node & (top > 0) & (s.nodes < self.node_limit)
+            pidx = (top - 1).clamp(min=0)
+            top = top - can_pop.to(top.dtype)
+        pop_fixed, pop_fside = s.stack_fixed[bidx, pidx], s.stack_side[bidx, pidx]
+        pop_act = s.stack_act[bidx, pidx]
+        nodes = s.nodes + pos(can_pop)
+        cp = can_pop[:, None]
+        cur_fixed = torch.where(cp, pop_fixed, s.cur_fixed)
+        cur_fside = torch.where(cp, pop_fside, s.cur_fside)
+        eq_lane = arr.is_eq | cur_fixed
+        lam = torch.where(cp, s.stack_lam[bidx, pidx], s.lam)
+        act = torch.where(cp, pop_act | eq_lane, s.act)
+        side = torch.where(cp, torch.where(pop_fixed, pop_fside, s.stack_ws[bidx, pidx]),
+                           s.side)
+        node_iter = torch.where(can_pop, 0, s.node_iter)
+        active = s.active_node | can_pop
+        R = s.R
+        if not self.reference:
+            # the popped entry holds the parent's inverse; the child's
+            # working set adds the branched row
+            R = torch.where(can_pop[:, None, None], s.stack_R[bidx, pidx].to(dtype), R)
+            new_row = pop_fixed & ~pop_act
+            R = self.wu_add(R, act, new_row, can_pop & new_row.any(1))
+
+        # ---- at most K_CHUNK iterations of the active lanes (idle lanes
+        # enter at the limit)
+        d_f = torch.where(cur_fside, du_t, dl_t)
+        du_n, dl_n = torch.where(cur_fixed, d_f, du_t), torch.where(cur_fixed, d_f, dl_t)
+        it0 = torch.where(active, 0, self.K_CHUNK).to(torch.int32)
+        kw = dict(max_iter=self.K_CHUNK, primal_tol=self.primal_tol, sign_tol=self.sign_tol,
+                  iters0=it0)
+        if not self.reference:
+            st, R, stale = _active_set_loop_wu(arr, du_n, dl_n, eq_lane, arr.is_immutable, lam,
+                                               act, side, R, stale_tol=self.STALE_TOL,
+                                               ridge=self.ridge, **kw)
+        else:
+            st = _active_set_loop(arr, du_n, dl_n, lam, act, side,
+                                  use_cholesky=self.use_cholesky, eq=eq_lane, **kw)
+            stale = torch.zeros_like(active)
+        stepped = (st.iters - it0).clamp(min=0)
+        am = active[:, None]
+        lam = torch.where(am, st.lam, lam)
+        act = torch.where(am, st.active, act)
+        side = torch.where(am, st.side, side)
+        node_iter = node_iter + stepped
+        iters = s.iters + torch.where(active, stepped, 0)
+        done_k = active & st.done
+        feas = _primal_feasible(arr, du_n, dl_n, lam, act, side, self.primal_tol)
+        conv = done_k & feas
+        # a converged but infeasible node is pruned as unconverged
+        nfail_cap = active & ~st.done & (node_iter >= self.node_cap)
+        nfail = (done_k & ~feas) | nfail_cap
+
+        # ---- management of the converged nodes
+        _U, fval = _objective(arr, self.U0, self.f_t, lam)
+        pruned_conv = conv & s.inc_found & (fval >= s.inc_fval)
+        c = lam @ arr.G.T
+        slack_up = torch.where(arr.up_finite, du_t + c, big)
+        slack_lo = torch.where(arr.lo_finite, -dl_t - c, big)
+        frac = torch.where(self.branchable_rows & ~cur_fixed,
+                           torch.minimum(slack_up, slack_lo), -big)
+        jb = frac.argmax(1)
+        integral = _take(frac, jb) <= BIN_TOL
+        better = conv & integral & ~pruned_conv & (fval < s.inc_fval)
+        bt = better[:, None]
+        inc_fval = torch.where(better, fval, s.inc_fval)
+        inc_lam = torch.where(bt, lam, s.inc_lam)
+        inc_active = torch.where(bt, act | cur_fixed, s.inc_active)
+        inc_side = torch.where(bt, torch.where(cur_fixed, cur_fside, side), s.inc_side)
+        inc_found = s.inc_found | better
+
+        # ---- branch: push the far child (parent-warm), continue the near
+        # child in place
+        branch = conv & ~pruned_conv & ~integral
+        onehot = self.idx == jb[:, None]
+        child_fixed = cur_fixed | onehot
+        near_up = _take(slack_up, jb) <= _take(slack_lo, jb)
+        nu = near_up[:, None]
+        far_viable = torch.where(near_up, arr.lo_finite[jb], arr.up_finite[jb])
+        if not self.reference:
+            free = ~occ
+            has_free = free.any(1)
+            ix = free.to(torch.uint8).argmax(1)
+            do_push = branch & far_viable & has_free
+            push_capped = branch & far_viable & ~has_free
+            occ[bidx, ix] = occ[bidx, ix] | do_push
+        else:
+            ix = top.clamp(max=cap - 1)
+            do_push = branch & far_viable & (top < cap)
+            push_capped = branch & far_viable & (top >= cap)
+        top = top + do_push.to(top.dtype)
+        dom = do_push[:, None]
+        for stack, v in ((s.stack_fixed, child_fixed),
+                         (s.stack_side, torch.where(onehot, ~nu, cur_fside)),
+                         (s.stack_lam, lam), (s.stack_act, act),
+                         (s.stack_ws, torch.where(onehot, ~nu, side))):
+            stack[bidx, ix] = torch.where(dom, v, stack[bidx, ix])
+        s.stack_bound[bidx, ix] = torch.where(do_push, fval, s.stack_bound[bidx, ix])
+        if not self.reference:
+            # the far child inherits the parent's inverse, kept in float32
+            s.stack_R[bidx, ix] = torch.where(do_push[:, None, None], R.to(torch.float32),
+                                              s.stack_R[bidx, ix])
+
+        bm = branch[:, None] & onehot
+        cur_fixed = torch.where(branch[:, None], child_fixed, cur_fixed)
+        cur_fside = torch.where(bm, nu, cur_fside)
+        # the near child's fixed row joins the working set at its bound
+        add_row = bm & ~act
+        act = act | bm
+        side = torch.where(bm, nu, side)
+        nodes = nodes + pos(branch)
+        node_iter = torch.where(branch, 0, node_iter)
+        finished = (conv & (integral | pruned_conv)) | nfail
+        active = (active & ~finished) | branch
+        exhausted = s.exhausted | nfail
+        capped = s.capped | nfail_cap | push_capped
+        reseeds = s.reseeds
+        if not self.reference:
+            R = self.wu_add(R, act, add_row, branch & add_row.any(1))
+            # drift certificate: reseed the lanes whose carried inverse
+            # degraded or that the loop's staleness gate froze
+            M = masked_system(self.Gsr, act.to(dtype))
+            err = (torch.bmm(M, R) - self.eye).abs().amax((1, 2))
+            bad = active & (stale | (err > self.DRIFT_TOL))
+            R = torch.where(bad[:, None, None], self.seed_R(act), R)
+            reseeds = reseeds + pos(bad)
+
+        new = ChunkState(s.stack_fixed, s.stack_side, s.stack_lam, s.stack_act, s.stack_ws,
+                         s.stack_bound, s.stack_R, occ, top, cur_fixed, cur_fside, lam, act,
+                         side, R, node_iter, active, inc_fval, inc_lam, inc_active, inc_side,
+                         inc_found, nodes, iters, exhausted, capped, reseeds)
+        return new, (active | ((top > 0) & (nodes < self.node_limit))).any()
+
+    def finish(self, s: ChunkState) -> Solution:
+        """Statuses and the float64 re-solve of each incumbent's working set:
+        1 proven optimal, 2 an exact incumbent of a budget-limited search
+        (a node at its cap, the node limit, a full stack), -1 / -2 without
+        an incumbent (a pruned unconverged or infeasible node / none)."""
+        budgeted = s.capped | (s.nodes >= self.node_limit)
+        status = _status(s.inc_found, budgeted, s.exhausted | budgeted)
+        hi = self.arr if self.arr_hi is None else self.arr_hi
+        sol = polish_solution(hi, self.thetas, s.inc_active, s.inc_side,
+                              use_cholesky=self.use_cholesky)
+        return _result(sol, s.inc_found, s.inc_active, s.inc_side, s.iters, status)
+
+    def solve(self, thetas, max_rounds: int | None = None) -> Solution:
+        """Rounds until no lane searches (checked every ``POLL_EVERY``
+        rounds) or ``max_rounds`` (default: every node at its cap) have run;
+        ``last_state`` and ``rounds`` keep the search's statistics."""
+        s = self.init(thetas)
+        cap_rounds = max_rounds or (
+            self.node_limit * ((self.node_cap + self.K_CHUNK - 1) // self.K_CHUNK) + 8)
+        r = 0
+        while r < cap_rounds:
+            n = min(self.POLL_EVERY, cap_rounds - r)
+            for _ in range(n):
+                s, any_active = self.step(s)
+            r += n
+            if not bool(any_active):
+                break
+        self.last_state, self.rounds = s, r
         return self.finish(s)
 
 

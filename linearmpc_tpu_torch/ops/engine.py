@@ -2,13 +2,20 @@
 
 Port of ``linearmpc_tpu/ops/engine.py`` (``:22-110``, the large-m tiers
 ``:112-1059``, the small-m tier ``:1061-1243`` and the entry points
-``:1426-1501``). The engine picks its path by dtype and m, as the JAX
-engine does on its accelerator:
+``:1426-1501``). ``route`` picks the path from dtype, m, symmetry, binary
+rows and the hierarchy: a float32 engine the JAX engine's route on its
+accelerator, a float64 engine the exact CPU route, on either device:
 
-* **float64** is the exact path: ``dual_active_set.solve_batch`` with the
-  subset-table gather (m <= 12) or a masked factorization, as the JAX
-  engine runs on the CPU. It runs on the CPU only.
-* **float32, m <= 10**, the small-m tier: K1 bulk phase (``ops/bulk.py``)
+* **float64** is the exact path: ``dual_active_set.solve_single`` without
+  the continuation, on K1's float64 instantiation at m <= 10 on CUDA, the
+  subset-table gather (m <= 12) or a masked factorization otherwise, as
+  the JAX engine runs on the CPU.
+* **float32, m = 0, m = 11-12, or a non-symmetric H above m = 10**
+  ("single"): batched ``solve_single`` with its float64 continuation, as
+  the JAX engine's XLA fallback (``engine.py:1498-1501``); m = 0 is the
+  closed form with status 1. (The JAX float32 engine cannot be built at
+  m = 0: ``engine.py:131-133`` divides by m^2.)
+* **float32, m <= 10**, the small-m tier (any H): K1 bulk phase (``ops/bulk.py``)
   -> K2 polish (``ops/polish.py``) -> ``torch.topk`` of the K=256 worst
   lanes by ``bad`` -> ``finish_from_state`` in float64 -> merge and status
   (``engine.py:1136-1211``); ``fused_rollout_solve`` is its warm step.
@@ -35,24 +42,26 @@ Two kinds of problem take other paths, in this order (``engine.py:
   (``engine.py:1245-1397``): in float32 the incremental node frontier
   (``bnb_frontier.IncFrontier``) on K3's resumable entry, where the
   frontier's routing rule ``iu_max_chunk_lanes(m, 20 MiB) >= 128`` admits
-  m (m <= 66); in float64 the pop-per-round frontier with the GI relax for
-  m <= 64 and the masked-Cholesky relax above, and single solves through
-  the per-lane depth-first search (``bnb.solve_bnb_dfs``), which also
-  serves a non-symmetric H.
+  m (m <= 66), and beyond it the frontier rounds (``bnb_frontier.
+  FrontierRounds``) on the float64 node arrays; in float64 the
+  pop-per-round frontier with the GI relax for m <= 64 and the
+  masked-Cholesky relax above. Single solves outside the incremental
+  frontier, and a non-symmetric H, take the per-lane depth-first search
+  (``bnb.solve_bnb_dfs``), whose incumbents a float32 engine re-solves in
+  float64.
 
+Single solves (``solve``) go through ``solve_single`` at B = 1 as the JAX
+engine's do, so a float32 single solve reports -3 for an infeasible point.
 Each tier is one piece of code: on CUDA tensors it launches the kernels,
 on CPU tensors it runs their plain versions. The tiers' float32 matrix
 products run at full precision (``full_f32``), as the JAX package's
-``Precision.HIGHEST``. On CUDA the default dtype is float32, and a
-configuration outside these paths (float64 outside the hierarchy, float32
-at m = 11-12, a non-symmetric H in float32, float32 branch-and-bound at
-m >= 67) raises ``NotImplementedError`` naming the ROADMAP item that ports
-it; it does not run on the CPU instead. The JAX package's environment
-switches (``LINEARMPC_TPU_PALLAS``, ``LINEARMPC_TPU_CIU_SMAX``,
-``LINEARMPC_TPU_BNB_K``, ...) are not ported: branch-and-bound runs with
-their defaults (8 iterations a round, mid-solve pruning and root warm
-starts on). No lane chunking and no B % 128 rule or padding: the kernels
-take any batch size.
+``Precision.HIGHEST``. On CUDA the default dtype is float32. The JAX
+package's environment switches (``LINEARMPC_TPU_PALLAS``,
+``LINEARMPC_TPU_CIU_SMAX``, ``LINEARMPC_TPU_BNB_K``, ...) are not ported:
+branch-and-bound runs with their defaults (8 iterations a round, mid-solve
+pruning and root warm starts on; 24 a round and a poll every 4 rounds in
+the frontier rounds). No lane chunking and no B % 128 rule or padding: the
+kernels take any batch size.
 
 Deliberate differences from the JAX package: the small-m tier reports
 status 1 or -1 only (``engine.py:1209-1210``); K4 breaks ties between
@@ -72,12 +81,13 @@ import torch
 
 from . import bulk, ciu, iu, polish
 from .bnb import solve_bnb_dfs
-from .bnb_frontier import IncFrontier, make_xla_relax, solve_bnb_frontier
+from .bnb_frontier import FrontierRounds, IncFrontier, make_xla_relax, solve_bnb_frontier
 from .dual_active_set import (
     LDPArrays,
     Solution,
     finish_from_state,
-    solve_batch,
+    polish_solution,
+    solve_single,
     to_device_arrays,
 )
 from .hierarchy import LexSolver
@@ -110,9 +120,40 @@ def resolve_device(device) -> torch.device:
     return torch.device("cuda")
 
 
-def _unsupported(what: str, item: str, where: str = " to CUDA"):
-    raise NotImplementedError(
-        f"{what} is not ported{where} yet (ROADMAP.md, modules to port, {item})")
+def route(device_type: str, dtype, m: int, *, symmetric: bool = True, binaries: bool = False,
+          lexicographic: bool = False) -> tuple[str, str | None]:
+    """(path, bnb_mode) of an engine, as the JAX engine picks them: a
+    float32 engine takes the JAX engine's accelerator route, a float64
+    engine the exact CPU route; the route is the same on ``"cpu"`` and
+    ``"cuda"`` (``engine.py:86-120``, ``:1070-1077``, ``:1276-1397``).
+
+    path: "lex"; "hybrid" with bnb_mode "dfs" (a non-symmetric H),
+    "frontier" (float64), "inc" (float32 where K3's frontier rule admits
+    m) or "rounds" (float32 beyond it); "exact" (float64); and in float32
+    "small" (0 < m <= 10, any H), "single" (batched ``solve_single``: m = 0,
+    m = 11-12, or a non-symmetric H above m = 10), "iu" (K3's rule admits
+    m) or "compact"."""
+    if device_type not in ("cpu", "cuda"):
+        raise ValueError(f"the engine runs on cpu or cuda, got {device_type!r}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dtype must be float32 or float64, got {dtype}")
+    if lexicographic:
+        return "lex", None
+    f32 = dtype == torch.float32
+    if binaries:
+        if not symmetric:
+            return "hybrid", "dfs"
+        if not f32:
+            return "hybrid", "frontier"
+        admitted = iu.iu_max_chunk_lanes(m, iu.FRONTIER_BUDGET) >= iu.LANES
+        return "hybrid", "inc" if admitted else "rounds"
+    if not f32:
+        return "exact", None
+    if 0 < m <= bulk.MAX_M:
+        return "small", None
+    if m <= SUBSET_CACHE_MAX_M or not symmetric:
+        return "single", None
+    return ("iu" if iu.iu_max_chunk_lanes(m) >= iu.LANES else "compact"), None
 
 
 @contextlib.contextmanager
@@ -168,10 +209,9 @@ class SolverEngine:
         self.ldp = ldp
         self.device = resolve_device(device)
         self.dtype = default_dtype(self.device) if dtype is None else dtype
-        if self.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"dtype must be float32 or float64, got {self.dtype}")
         m = ldp.m
-        on_cuda = self.device.type == "cuda"
+        self.path, self.bnb_mode = route(self.device.type, self.dtype, m, symmetric=symmetric,
+                                         binaries=has_binaries, lexicographic=lexicographic)
         self.tier = self.dtype == torch.float32
         self.iter_limit = int(iter_limit)
         self.symmetric = bool(symmetric)
@@ -184,31 +224,9 @@ class SolverEngine:
             self.lex = LexSolver(ldp, device=self.device, soft_weight=soft_weight,
                                  iter_limit=iter_limit, primal_tol=primal_tol,
                                  sign_tol=max(sign_tol, 1e-11))
-            self.path = "lex"
             self.primal_tol, self.sign_tol = self.lex.primal_tol, self.lex.sign_tol
             self.arrays, self.arrays_hi = self.lex.base, None
             return
-        if on_cuda and not self.tier:
-            _unsupported("the float64 exact path on CUDA", "item 10")
-        if self.tier and not symmetric:
-            _unsupported("a non-symmetric H (AVI) in the float32 tiers", "item 10")
-        if self.has_binaries:
-            self.path = "hybrid"
-            if self.tier and iu.iu_max_chunk_lanes(m, iu.FRONTIER_BUDGET) < iu.LANES:
-                _unsupported(f"float32 branch-and-bound at m={m} (the frontier rounds, "
-                             f"make_frontier_rounds and _active_set_loop_wu)", "item 6b",
-                             where="")
-        else:
-            if self.tier and m <= 0:
-                _unsupported("the float32 tiers at m=0", "item 10")
-            if self.tier and bulk.MAX_M < m <= SUBSET_CACHE_MAX_M:
-                _unsupported(f"the float32 tier at m={m} (the JAX package runs its XLA "
-                             f"solve_single there)", "item 10")
-            # the tier the JAX engine picks on its accelerator
-            self.path = "exact"
-            if self.tier:
-                self.path = ("small" if m <= bulk.MAX_M
-                             else "iu" if iu.iu_max_chunk_lanes(m) >= iu.LANES else "compact")
 
         subset_inv = None
         if 0 < m <= SUBSET_CACHE_MAX_M:
@@ -225,10 +243,18 @@ class SolverEngine:
         self.arrays: LDPArrays = to_device_arrays(ldp, self.dtype, self.device, subset_inv)
         self.arrays_hi = (to_device_arrays(ldp, torch.float64, self.device, subset_inv)
                           if self.tier else None)
+        # solve_single's keywords, for single solves and the "single" and
+        # "exact" paths: the float32 bulk phase is the GI inverse-update
+        # loop beyond the subset cache (engine.py:86-96)
+        self._single_kw = dict(
+            max_iter=self.iter_limit, primal_tol=self.primal_tol, sign_tol=self.sign_tol,
+            use_cholesky=self.symmetric, arr_hi=self.arrays_hi,
+            bulk_inverse_updates=(subset_inv is None and self.symmetric and self.tier
+                                  and m <= 512))
         if self.has_binaries:
             self._init_hybrid()
             return
-        if not self.tier:
+        if self.path in ("exact", "single"):
             return
         # kernel-side flags stay on the host: no device sync per launch
         self._eq = self.arrays.is_eq_host
@@ -255,24 +281,32 @@ class SolverEngine:
     def _init_hybrid(self):
         """Branch-and-bound set-up (engine.py:1245-1397): the stack holds a
         depth-first path (2 nb + 2 nodes), a node relaxation gets 2 m + 24
-        iterations. ``bnb_mode``: "inc" (float32, the incremental frontier on
-        K3's resumable entry), "frontier" (float64, pop-per-round with the GI
-        relax at m <= 64 and the masked-Cholesky relax above) or "dfs" (a
-        non-symmetric H, the per-lane depth-first search)."""
+        iterations. ``bnb_mode`` (``route``): "inc" (float32, the incremental
+        frontier on K3's resumable entry), "rounds" (float32 beyond K3's
+        frontier rule, ``FrontierRounds`` on the float64 node arrays),
+        "frontier" (float64, pop-per-round with the GI relax at m <= 64 and
+        the masked-Cholesky relax above) or "dfs" (a non-symmetric H, the
+        per-lane depth-first search)."""
         ldp, m = self.ldp, self.ldp.m
         nb = int(np.sum(ldp.is_binary))
         self.stack_cap = max(2 * nb + 2, 4)
         self.node_cap = min(self.iter_limit, 2 * m + 24)
-        if not self.symmetric:
-            self.bnb_mode = "dfs"
-        elif self.tier:
-            self.bnb_mode = "inc"
+        if self.bnb_mode == "inc":
             self._G32, self._Gs32 = iu.gram(ldp, torch.float32, self.device)
             self._stepper = iu.make_iu_stepper(
                 self._G32, self._Gs32, self.arrays.is_immutable, K=K_ROUND,
                 primal_tol=self.primal_tol, sign_tol=self.sign_tol)
-        else:
-            self.bnb_mode = "frontier"
+        elif self.bnb_mode == "rounds":
+            # the JAX accelerator's arguments (engine.py:1328-1385): a larger
+            # stack for best-first's open list, a node cap above the longer
+            # Woodbury walks
+            self._rounds = FrontierRounds(
+                self.arrays_hi, self.arrays_hi,
+                stack_cap=max(self.stack_cap, min(6 * nb + 2, 256)),
+                node_limit=self.bnb_node_limit, node_cap=min(self.iter_limit, 2 * self.node_cap),
+                primal_tol=min(self.primal_tol, 1e-6), sign_tol=1e-11,
+                use_cholesky=self.symmetric)
+        elif self.bnb_mode == "frontier":
             self._relax = make_xla_relax(self.arrays, max_iter=self.node_cap,
                                          mode="cholesky" if m > 64 else "iu",
                                          primal_tol=self.primal_tol, sign_tol=self.sign_tol)
@@ -287,6 +321,8 @@ class SolverEngine:
     def _hybrid_batch(self, thetas) -> Solution:
         if self.bnb_mode == "inc":
             return self.inc_frontier().solve(thetas)
+        if self.bnb_mode == "rounds":
+            return self._rounds.solve(thetas)
         if self.bnb_mode == "frontier":
             return solve_bnb_frontier(self.arrays, None, thetas, self._relax,
                                       stack_cap=self.stack_cap, node_limit=self.bnb_node_limit,
@@ -294,13 +330,17 @@ class SolverEngine:
         return self._dfs(thetas)
 
     def _dfs(self, thetas) -> Solution:
-        """The per-lane depth-first search (float64 engines only: a float32
-        engine runs the incremental frontier, or raises for a non-symmetric
-        H, so no float64 re-solve follows as on the JAX accelerator)."""
-        return solve_bnb_dfs(self.arrays, thetas, stack_cap=self.stack_cap,
-                             node_limit=self.bnb_node_limit, max_iter=self.iter_limit,
-                             primal_tol=self.primal_tol, sign_tol=self.sign_tol,
-                             use_cholesky=self.symmetric)
+        """The per-lane depth-first search in the engine's dtype; a float32
+        engine then re-solves each incumbent's working set in float64
+        (engine.py:1257-1264)."""
+        sol = solve_bnb_dfs(self.arrays, thetas, stack_cap=self.stack_cap,
+                            node_limit=self.bnb_node_limit, max_iter=self.iter_limit,
+                            primal_tol=self.primal_tol, sign_tol=self.sign_tol,
+                            use_cholesky=self.symmetric)
+        if self.arrays_hi is None:
+            return sol
+        return polish_solution(self.arrays_hi, thetas, sol.active, sol.side,
+                               use_cholesky=self.symmetric, iters=sol.iters, status=sol.status)
 
     # -- shared pieces ------------------------------------------------------
     def _bounds32(self, thetas):
@@ -761,21 +801,27 @@ class SolverEngine:
             return self._iu_batch(thetas, warm)
         if self.path == "compact":
             return self._ciu_batch(thetas, warm)
+        # "exact" and "single": batched solve_single (engine.py:1498-1501)
         w = (None,) * 3 if warm is None else tuple(warm)
-        return solve_batch(self.arrays, thetas, *w, max_iter=self.iter_limit,
-                           primal_tol=self.primal_tol, sign_tol=self.sign_tol,
-                           use_cholesky=self.symmetric)
+        return solve_single(self.arrays, thetas, *w, **self._single_kw)
 
+    @full_f32()
     def solve(self, theta) -> tuple[np.ndarray, float, int, dict]:
-        """Single solve (reference solve(), src/utils.jl:268-283): a batch
-        of one through the same path, except that a float64 branch-and-bound
-        engine solves singles by the depth-first search (engine.py:1434-1442).
-        Returns (U, fval, status, info)."""
-        theta = np.asarray(theta, dtype=np.float64).reshape(1, -1)
+        """Single solve (reference solve(), src/utils.jl:268-283), routed as
+        the JAX engine routes it (engine.py:1426-1452): ``solve_single`` at
+        B = 1 (in float32 with the float64 continuation, which reports -3
+        for an infeasible point); a lexicographic engine through its levels;
+        branch-and-bound by the depth-first search, except in the float32
+        incremental frontier, which takes a batch of one. Returns (U, fval,
+        status, info)."""
+        theta = torch.as_tensor(np.asarray(theta, dtype=np.float64).reshape(1, -1),
+                                device=self.device)
         if self.path == "hybrid" and self.bnb_mode != "inc":
-            sol = self._dfs(torch.as_tensor(theta, device=self.device))
-        else:
+            sol = self._dfs(theta)
+        elif self.path in ("lex", "hybrid"):
             sol = self.solve_batch(theta)
+        else:
+            sol = solve_single(self.arrays, theta, **self._single_kw)
         info = {
             "iterations": int(sol.iters[0]),
             "lam": sol.lam[0].cpu().numpy(),

@@ -10,7 +10,7 @@ import torch
 import linearmpc_tpu as lmpc
 import linearmpc_tpu_torch as tmpc
 from linearmpc_tpu_torch.ops import bulk, polish
-from linearmpc_tpu_torch.ops.engine import SolverEngine
+from linearmpc_tpu_torch.ops.engine import SolverEngine, route
 from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
 
 GOLDEN_U = 1.7612519326
@@ -168,17 +168,27 @@ def test_tier_routes_stragglers_to_f64():
 
 
 @pytest.mark.parametrize("case", [
-    dict(dtype=torch.float64, name="invpend"),      # exact path: CPU only
-    dict(dtype=torch.float32, name="invpend", Np=50, Nc=11),  # m = 11: XLA solve_single
-    # binaries at m = 88: the frontier rounds (the satellite, m = 60, runs)
-    dict(dtype=torch.float32, name="invpend_contact", Np=4, Nc=4),
+    # the exact path, on K1's float64 instantiation on the card
+    dict(dtype=torch.float64, name="invpend", route=("exact", None)),
+    # m = 11: batched solve_single, the JAX engine's XLA fallback
+    dict(dtype=torch.float32, name="invpend", Np=50, Nc=11, route=("single", None)),
+    # binaries at m = 88: the frontier rounds (the satellite, m = 60, is "inc")
+    dict(dtype=torch.float32, name="invpend_contact", Np=4, Nc=4,
+         route=("hybrid", "rounds")),
 ])
 def test_cuda_engine_outside_tier_raises(case):
-    """A CUDA engine outside the float32 tiers names its ROADMAP item
-    instead of falling back to the CPU (checked before any device work)."""
+    """The configurations that raised on CUDA before they were ported now
+    route: ``route`` gives the same path on "cuda" as on "cpu", and the
+    CPU engine takes it."""
     mpc, _ = tmpc.mpc_examples(case["name"], case.get("Np"), case.get("Nc"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mpc.setup(device="cuda", dtype=case["dtype"])
+    mpc.setup(device="cpu", dtype=case["dtype"])
+    eng, qp = mpc.engine, mpc.mpQP
+    for dev in ("cuda", "cpu"):
+        assert route(dev, case["dtype"], eng.ldp.m, symmetric=qp.is_symmetric,
+                     binaries=qp.has_binaries) == case["route"]
+    assert (eng.path, eng.bnb_mode) == case["route"]
+    with pytest.raises(ValueError):
+        route("mps", case["dtype"], eng.ldp.m)
 
 
 @pytest.mark.parametrize("use_table", [True, False])

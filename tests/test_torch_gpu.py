@@ -565,13 +565,148 @@ def test_hybrid_engine_on_card_matches_cpu_f64():
 
 def test_f32_hybrid_large_m_raises_on_card():
     """invpend_contact at Np = 4 (m = 88) is past the incremental frontier's
-    routing rule: the float32 engine on the card raises, naming the ROADMAP
-    item of the frontier rounds; it does not run on the CPU instead."""
+    routing rule: ``route`` sends a float32 engine to the frontier rounds on
+    the card as on the CPU, and the card's engine takes them on the float64
+    node arrays on the card."""
+    from linearmpc_tpu_torch.ops.engine import route
+
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mpc, _ = tmpc.mpc_examples("invpend_contact", 4, 4)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        mpc.setup(device="cuda", dtype=torch.float32)
+    mpc.setup(device="cuda", dtype=torch.float32)
+    eng = mpc.engine
+    assert route("cuda", torch.float32, eng.ldp.m, binaries=True) == ("hybrid", "rounds")
+    assert eng.bnb_mode == "rounds" and eng._rounds.arr.G.is_cuda
+    assert eng._rounds.arr.G.dtype == torch.float64
+
+
+def test_f32_contact_engine_on_card_matches_cpu():
+    """The float32 engine at m = 88 (the frontier rounds) on the card at
+    B = 4 against the CPU float32 engine: statuses equal, fval within 1e-6
+    (1 + |f|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend_contact", 4, 4)
+    mpc.setup(device="cuda", dtype=torch.float32)
+    eng = mpc.engine
+    th = np.random.default_rng(3).uniform(-0.3, 0.3, (4, eng.ldp.n_theta))
+    sol = eng.solve_batch(th)
+    ref_mpc, _ = tmpc.mpc_examples("invpend_contact", 4, 4)
+    ref = ref_mpc.setup(device="cpu", dtype=torch.float32).engine.solve_batch(th)
+    assert torch.equal(sol.status.cpu(), ref.status) and bool((ref.status == 1).all())
+    f, f_ref = sol.fval.cpu().numpy(), ref.fval.numpy()
+    assert (np.abs(f - f_ref) / (1.0 + np.abs(f_ref))).max() <= 1e-6
+
+
+def _box13(device, dtype):
+    """invpend with the +-2 state box on ks 2..3 (m = 13)."""
+    mpc, _ = tmpc.mpc_examples("invpend")
+    mpc.add_constraint(Ax=np.eye(4), lb=-2 * np.ones(4), ub=2 * np.ones(4), ks=[2, 3])
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def test_single_solve_reports_minus3_on_card():
+    """A float32 single solve on the card goes through ``solve_single``: K3
+    for the bulk phase (m = 13, beyond the subset cache), then the float64
+    continuation; on infeasible points it returns -3 as on the CPU, with
+    finite controls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    eng, ref = _box13("cuda", torch.float32).engine, _box13("cpu", torch.float32).engine
+    rng = np.random.default_rng(1)
+    th = np.hstack([rng.uniform(-20, 20, (2, 6)), rng.uniform(-2, 2, (2, 1))])
+    for t in th:
+        before = iu.LAUNCHES
+        U, _f, status, _info = eng.solve(t)
+        assert iu.LAUNCHES == before + 1
+        assert status == -3 == ref.solve(t)[2] and np.isfinite(U).all()
+
+
+@pytest.mark.parametrize("case", ["m=0", "m=11"])
+def test_f32_single_path_on_card_matches_cpu(case):
+    """float32 at m = 0 (the closed form) and at m = 11 (batched
+    ``solve_single``, the masked subset-table loop as torch ops on the card
+    and its float64 continuation) against the CPU engine: statuses equal,
+    U within 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def build(device):
+        if case == "m=0":
+            mpc = tmpc.MPC.from_discrete([[1.0, 0.1], [0.0, 1.0]], [[0.0], [1.0]], C=np.eye(2),
+                                         Np=5, Nc=3)
+            mpc.set_objective(Q=[1.0, 1.0], R=[0.1])
+        else:
+            mpc, _ = tmpc.mpc_examples("invpend", 50, 11)
+        return mpc.setup(device=device, dtype=torch.float32).engine
+
+    eng, ref = build("cuda"), build("cpu")
+    assert eng.path == "single" and eng.ldp.m == int(case[2:])
+    rng = np.random.default_rng(5)
+    th = (rng.uniform(-1, 1, (256, eng.ldp.n_theta)) if case == "m=0" else
+          np.hstack([rng.uniform(-20, 20, (256, 6)), rng.uniform(-2, 2, (256, 1))]))
+    sol, sol_ref = eng.solve_batch(th), ref.solve_batch(th)
+    assert torch.equal(sol.status.cpu(), sol_ref.status) and bool((sol_ref.status == 1).all())
+    assert (sol.U.cpu() - sol_ref.U).abs().max().item() <= 1e-9
+
+
+@pytest.mark.parametrize("case", ["invpend", "m=48"])
+def test_f64_engine_on_card_matches_cpu(case):
+    """The float64 exact path on the card: invpend (m = 5) on K1's float64
+    instantiation, and the m = 48 box problem (the masked Cholesky loop as
+    torch ops) against the CPU engine: statuses equal, U within 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def build(device):
+        mpc, _ = tmpc.mpc_examples("invpend", *((50, 8) if case == "m=48" else (None, None)))
+        if case == "m=48":
+            mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
+                               ks=range(2, 12))
+        return mpc.setup(device=device, dtype=torch.float64).engine
+
+    eng, ref = build("cuda"), build("cpu")
+    assert eng.path == "exact"
+    box = 12.0 if case == "m=48" else 20.0
+    rng = np.random.default_rng(6)
+    th = np.hstack([rng.uniform(-box, box, (128, 6)), rng.uniform(-2, 2, (128, 1))])
+    before = bulk.LAUNCHES
+    sol, sol_ref = eng.solve_batch(th), ref.solve_batch(th)
+    assert (bulk.LAUNCHES > before) == (case == "invpend")
+    assert torch.equal(sol.status.cpu(), sol_ref.status)
+    ok = (sol_ref.status == 1).numpy()
+    assert ok.sum() >= 100
+    assert (sol.U.cpu() - sol_ref.U).abs().numpy()[ok].max() <= 1e-9
+
+
+def test_solve_single_kernel_launches_match_plain():
+    """``solve_single``'s launches replayed against the plain versions, bit
+    for bit: at m = 5 the K1 float32 bulk phase and the K1 float64
+    continuation of a single solve; at m = 48 the K3 bulk phase of a batch
+    of 64 (``bulk_inverse_updates``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend")
+    eng = mpc.setup(device="cuda", dtype=torch.float32).engine
+    th0 = mpc.form_parameter(np.array([5.0, 5.0, 0.0, 0.0]))
+    calls = _record(bulk, "phase1", lambda: eng.solve(th0))
+    assert sorted(str(a[2].dtype) for a, _k in calls) == ["torch.float32", "torch.float64"]
+    for a, k in calls:
+        _k1_equal(a, k)
+    mpc48, _ = tmpc.mpc_examples("invpend", 50, 8)
+    mpc48.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, 12))
+    eng48 = mpc48.setup(device="cuda", dtype=torch.float32).engine
+    from linearmpc_tpu_torch.ops.dual_active_set import solve_single
+
+    rng = np.random.default_rng(7)
+    th = torch.as_tensor(np.hstack([rng.uniform(-12, 12, (64, 6)), rng.uniform(-2, 2, (64, 1))]),
+                         device="cuda")
+    calls = _record(iu, "phase1_iu", lambda: solve_single(eng48.arrays, th, **eng48._single_kw))
+    assert len(calls) == 1
+    a, k = calls[0]
+    out_k, out_p = iu.phase1_iu(*a, **k), iu.phase1_iu_plain(*a, **k)
+    for x, y in zip(out_k, out_p):
+        assert torch.equal(x, y)
 
 
 def _lex_bench(device, dtype=None):
@@ -601,3 +736,32 @@ def test_lex_on_card_runs_k1_f64_and_matches_cpu():
     assert bool((sol.status == 1).all())
     assert torch.equal(sol.status.cpu(), ref.status)
     assert (sol.U.cpu() - ref.U).abs().max().item() <= 1e-9
+
+
+def test_lex_wide_on_card_matches_cpu():
+    """A lexicographic problem past K1's table (Np = 5, m = 13): each level
+    is the plain float64 masked Cholesky loop as torch ops on the card;
+    statuses equal to the CPU LexSolver at B = 1024, U within 1e-8. Its
+    weights (1e-6 against soft weights 1e6) put U's round-off floor near
+    1e-9: a relative change of 1e-15 in theta moves U by 1.2e-9 on the CPU,
+    and the CPU port and the JAX package differ by 1.6e-9 there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+    def build(device):
+        mpc = tmpc.MPC.from_discrete([[1.0]], [[1.0]], C=[[1.0]], Np=5, Nc=5)
+        mpc.set_bounds(umin=[-5.0], umax=[5.0])
+        mpc.set_objective(Q=[1e-6], R=[1e-6])
+        mpc.add_constraint(Ax=[[1.0]], lb=[1.0], ks=range(2, 6), soft=True, prio=0)
+        mpc.add_constraint(Ax=[[1.0]], ub=[-1.0], ks=range(2, 6), soft=True, prio=1)
+        mpc.settings.hierarchy = "lexicographic"
+        return mpc.setup(device=device).engine
+
+    eng, ref = build("cuda"), build("cpu")
+    assert eng.path == "lex" and eng.ldp.m == 13
+    th = np.random.default_rng(34).uniform(-2.0, 2.0, (1024, eng.ldp.n_theta))
+    before = bulk.LAUNCHES
+    sol, sol_ref = eng.solve_batch(th), ref.solve_batch(th)
+    assert bulk.LAUNCHES == before
+    assert torch.equal(sol.status.cpu(), sol_ref.status) and bool((sol_ref.status == 1).all())
+    assert (sol.U.cpu() - sol_ref.U).abs().max().item() <= 1e-8

@@ -16,9 +16,11 @@ value, so U is not compared, ``bnb_frontier.py:28-30``), fval within 1e-8
 and U within 1e-7 in float64 (``tests/test_hybrid.py:148-170``).
 """
 
+import dataclasses
 import functools
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +35,8 @@ from linearmpc_tpu.simulation import simulate_kw as jax_simulate_kw
 from linearmpc_tpu_torch.mpc import MPC as TorchMPC
 from linearmpc_tpu_torch.ops import bnb_frontier, iu
 from linearmpc_tpu_torch.ops.bnb import solve_bnb_dfs
+from linearmpc_tpu_torch.ops.engine import route
+from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
 from linearmpc_tpu_torch.simulation import simulate_kw
 
 K = 8
@@ -388,23 +392,203 @@ def test_dfs_single_lane_matches_jax_solve_bnb_single():
 
 # -- (e) the masked-Cholesky relax on the contact problem ---------------------
 
+def _contact_thetas(B):
+    """The first B lanes of invpend_contact (4, 4) at theta in +-0.3,
+    default_rng(3) (tests/test_hybrid.py:370-376)."""
+    nth = _port("invpend_contact", 4, False).engine.ldp.n_theta
+    return np.random.default_rng(3).uniform(-0.3, 0.3, (B, nth))
+
+
+@functools.lru_cache(maxsize=1)
+def _contact_f64():
+    """Both float64 engines (the monolithic frontier, Cholesky relax) on
+    the first two contact lanes: (thetas, port solution, JAX solution)."""
+    ths = _contact_thetas(2)
+    sol = _port("invpend_contact", 4, False).engine.solve_batch(ths)
+    return ths, sol, _jax_engine("invpend_contact", 4, False).solve_batch(ths)
+
+
+@functools.lru_cache(maxsize=1)
+def _contact_f32():
+    """The port's float32 engine at m = 88, the frontier rounds, on four
+    contact lanes: (thetas, solution, last round state, rounds)."""
+    eng = _port("invpend_contact", 4, True).engine
+    ths = _contact_thetas(4)
+    sol = eng.solve_batch(ths)
+    return ths, sol, eng._rounds.last_state, eng._rounds.rounds
+
+
 def test_cholesky_frontier_contact_matches_jax():
     """invpend_contact (4, 4), m = 88 > 64: both float64 engines run the
     pop-per-round frontier with the masked-Cholesky relax. Its relaxations
     are massively degenerate (cond(G_solve) ~ 4e17, multipliers ~ 1e8), so
     the two packages' Cholesky round-off moves the multipliers by ~1e-3
-    relative from the first iterations on and some lanes branch
-    differently; this lane (7140 node iterations) ends on the same optimum."""
-    e_j = _jax_engine("invpend_contact", 4, False)
+    relative from the first iterations on and the node walks differ; these
+    two lanes (7140 and 6745 node iterations in the JAX package) end on the
+    same optimum."""
     eng = _port("invpend_contact", 4, False).engine
     assert eng.ldp.m == 88 and eng.bnb_mode == "frontier"
-    ths = np.random.default_rng(3).uniform(-0.3, 0.3, (1, eng.ldp.n_theta))
-    ref = e_j.solve_batch(ths)
-    sol = eng.solve_batch(ths)
+    _ths, sol, ref = _contact_f64()
     assert np.array_equal(sol.status.numpy(), np.asarray(ref.status))
     assert np.all(sol.status.numpy() == 1)
     assert np.abs(sol.fval.numpy() - np.asarray(ref.fval)).max() < 1e-8
     assert np.abs(sol.U.numpy() - np.asarray(ref.U)).max() < 1e-7
+
+
+def _fixed_binary_fval(ldp, theta, lam):
+    """The incumbent's binary rows, each on the bound it is nearer, and the
+    float64 optimum of the continuous QP with those rows clamped there
+    (``solve_ldp_numpy``): (binaries at the upper bound, status, fval)."""
+    dt = ldp.Dth @ theta
+    c = ldp.G @ lam
+    up = (np.where(ldp.up_finite, ldp.du + dt + c, np.inf)
+          <= np.where(ldp.lo_finite, -(ldp.dl + dt) - c, np.inf))
+    b = np.asarray(ldp.is_binary)
+    d = np.where(up, ldp.du, ldp.dl)
+    clamped = dataclasses.replace(ldp, du=np.where(b, d, ldp.du), dl=np.where(b, d, ldp.dl),
+                                  is_eq=np.asarray(ldp.is_eq) | b)
+    U, *_rest, status = solve_ldp_numpy(clamped, theta, max_iter=5000)
+    f_t = ldp.f + ldp.f_theta @ theta
+    return up[b], status, 0.5 * U @ ldp.H @ U + f_t @ U
+
+
+def test_f64_contact_frontier_lanes_agree_on_optimum():
+    """Pins the settled fault of the float64 Cholesky-relax frontier at
+    m = 88: on 16 lanes both packages' node walks differ (their iteration
+    counts differ on 14) but no status or fval differs; here, on two such
+    lanes, both end on the same working set and binaries, and each
+    incumbent is the float64 optimum of its binaries (fval within 1e-10
+    (1 + |f|) of the clamped QP's), so neither package pruned wrongly."""
+    ldp = _port("invpend_contact", 4, False).engine.ldp
+    ths, sol, ref = _contact_f64()
+    assert np.array_equal(sol.active.numpy(), np.asarray(ref.active))
+    for i, th in enumerate(ths):
+        fvals = []
+        for lam, fval in ((sol.lam[i].numpy(), float(sol.fval[i])),
+                          (np.asarray(ref.lam[i]), float(ref.fval[i]))):
+            up, status, f_np = _fixed_binary_fval(ldp, th, lam)
+            assert status == 1 and abs(fval - f_np) <= 1e-10 * (1.0 + abs(f_np))
+            fvals.append((up, f_np))
+        assert np.array_equal(fvals[0][0], fvals[1][0])
+        assert abs(fvals[0][1] - fvals[1][1]) <= 1e-12 * (1.0 + abs(fvals[1][1]))
+
+
+# -- (f) the frontier rounds: float32 hybrid at m >= 67 -----------------------
+
+@pytest.mark.parametrize("case", [
+    # satellite m = 60: 8 lanes run to convergence; round-off level
+    dict(name="satellite", Np=20, B=8, lo=1.0, iters=60, lam_tol=1e-12, R_tol=1e-12),
+    # contact m = 88 (cond(G_solve) ~ 4e17, ||R|| up to 1e8): the walks
+    # part after ~15 iterations on some lanes (a degenerate update's
+    # round-off decides a sign), so 10 iterations
+    dict(name="invpend_contact", Np=4, B=4, lo=0.3, iters=10, lam_tol=1e-6, R_tol=1e-5),
+])
+def test_wu_loop_matches_jax(case):
+    """``_active_set_loop_wu`` (Woodbury + Newton-Schulz maintained ridged
+    inverse, ridge 1e-8, the in-loop staleness gate on) against the JAX
+    loop from the same entry state and R0, in float64: a random third of
+    the binary rows clamped (per-lane eq), cold working sets. The discrete
+    state (working set, sides, iterations, done, stale) is equal; lam and R
+    agree within float64 round-off amplified by the ridged system's
+    conditioning: lam within ``lam_tol`` (1 + |lam|), R within ``R_tol``
+    max|R|."""
+    from linearmpc_tpu.ops.dual_active_set import _active_set_loop_wu as jax_wu
+    from linearmpc_tpu_torch.ops.dual_active_set import _active_set_loop_wu
+
+    e_j = _jax_engine(case["name"], case["Np"], False)
+    arr = _port(case["name"], case["Np"], False).engine.arrays
+    B, m = case["B"], arr.G.shape[0]
+    ths = np.random.default_rng(3).uniform(-case["lo"], case["lo"], (B, arr.Dth.shape[1]))
+    rng = np.random.default_rng(4)
+    dt = ths @ arr.Dth.numpy().T
+    du, dl = arr.du.numpy() + dt, arr.dl.numpy() + dt
+    fixed = arr.is_binary.numpy()[None] & (rng.uniform(size=(B, m)) < 0.3)
+    d = np.where(rng.uniform(size=(B, m)) < 0.5, du, dl)
+    du, dl = np.where(fixed, d, du), np.where(fixed, d, dl)
+    eq = arr.is_eq.numpy()[None] | fixed
+    lam0, side0 = np.zeros((B, m)), np.ones((B, m), bool)
+    fr = bnb_frontier.FrontierRounds(arr, None)
+    R0 = fr.seed_R(torch.tensor(eq)).numpy()
+    kw = dict(max_iter=case["iters"], primal_tol=1e-6, sign_tol=1e-11, ridge=fr.ridge)
+    st, R, stale = _active_set_loop_wu(arr, torch.tensor(du), torch.tensor(dl), torch.tensor(eq),
+                                       arr.is_immutable, torch.tensor(lam0), torch.tensor(eq),
+                                       torch.tensor(side0), torch.tensor(R0), **kw)
+    ref, R_j, stale_j = jax.jit(jax.vmap(lambda a, b, c, d0, e0, f0, g0: jax_wu(
+        e_j.arrays, a, b, c, e_j.arrays.is_immutable, d0, e0, f0, g0, **kw)))(
+        du, dl, eq, lam0, eq, side0, R0)
+    for a, b in ((st.active, ref.active), (st.side, ref.side), (st.iters, ref.iters),
+                 (st.done, ref.done), (stale, stale_j)):
+        assert np.array_equal(a.numpy(), np.asarray(b))
+    assert int(st.iters.sum()) > B * 5
+    lam_j = np.asarray(ref.lam)
+    assert (np.abs(st.lam.numpy() - lam_j) <= case["lam_tol"] * (1.0 + np.abs(lam_j))).all()
+    R_j = np.asarray(R_j)
+    assert (np.abs(R.numpy() - R_j).max((1, 2)) <= case["R_tol"] * np.abs(R_j).max((1, 2))).all()
+
+
+def test_frontier_rounds_matches_monolithic():
+    """tests/test_hybrid.py:391-430 on the port: the rounds with
+    ``reference=True`` (the masked-Cholesky loop in slices of 24
+    iterations, the depth-first stack) equal the port's monolithic float64
+    frontier bit for bit on two contact lanes; the engine's float32 path
+    (Woodbury-maintained inverse, best-first order, stack 98, node cap 400)
+    finds the same optima (fval rtol 1e-9, U within 1e-7)."""
+    eng = _port("invpend_contact", 4, False).engine
+    ths, mono, _ref = _contact_f64()
+    sol = bnb_frontier.FrontierRounds(
+        eng.arrays, None, stack_cap=eng.stack_cap, node_limit=eng.bnb_node_limit,
+        node_cap=eng.node_cap, primal_tol=eng.primal_tol, sign_tol=eng.sign_tol,
+        reference=True).solve(ths)
+    assert np.all(mono.status.numpy() == 1)
+    for a, b in ((sol.status, mono.status), (sol.fval, mono.fval), (sol.U, mono.U)):
+        assert torch.equal(a, b)
+    _ths, fast, _s, _r = _contact_f32()
+    assert torch.equal(fast.status[:2], mono.status)
+    assert np.allclose(fast.fval[:2].numpy(), mono.fval.numpy(), rtol=1e-9, atol=1e-9)
+    assert np.abs(fast.U[:2].numpy() - mono.U.numpy()).max() <= 1e-7
+
+
+def test_bnb_status_two_budget_limited():
+    """tests/test_hybrid.py:433-458 on the port: a lane that holds an exact
+    incumbent but whose search the node limit stopped reports 2, not 1.
+    The engine's rounds with the node limit starved to 40 find the same
+    optimum as the full search (status 1) on two lanes."""
+    ths, full, _s, _r = _contact_f32()
+    assert np.all(full.status.numpy() == 1)
+    fr = _port("invpend_contact", 4, True).engine._rounds
+    starved = bnb_frontier.FrontierRounds(
+        fr.arr, fr.arr_hi, stack_cap=fr.stack_cap, node_limit=40, node_cap=fr.node_cap,
+        primal_tol=fr.primal_tol, sign_tol=fr.sign_tol).solve(ths[:2])
+    assert np.all(starved.status.numpy() == 2)
+    assert np.allclose(starved.fval.numpy(), full.fval[:2].numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_frontier_rounds_carried_inverse_stats():
+    """tests/test_hybrid.py:461-483 on the port: the rounds expose their
+    search statistics, and drift-certificate reseeds stay under a quarter
+    of the rounds on every lane."""
+    _ths, sol, s, rounds = _contact_f32()
+    assert np.all(sol.status.numpy() == 1)
+    assert rounds > 50
+    assert int(s.reseeds.max()) < 0.25 * rounds
+
+
+def test_f32_contact_engine_matches_jax_frontier_rounds():
+    """The float32 engine at m = 88 against the JAX ``make_frontier_rounds``
+    called with the JAX engine's accelerator arguments (engine.py:1328-1385)
+    on four lanes: statuses equal, fval within 1e-6 (1 + |f|)."""
+    from linearmpc_tpu.ops.bnb_frontier import make_frontier_rounds
+
+    e_j = _jax_engine("invpend_contact", 4, True)
+    fr = _port("invpend_contact", 4, True).engine._rounds
+    ths, sol, _s, _r = _contact_f32()
+    ref = make_frontier_rounds(
+        e_j.arrays_hi, e_j.arrays_hi, stack_cap=fr.stack_cap, node_limit=fr.node_limit,
+        node_cap=fr.node_cap, k_chunk=24, use_cholesky=True, poll_every=4,
+        primal_tol=min(e_j.primal_tol, 1e-6), sign_tol=1e-11)(ths)
+    assert (fr.stack_cap, fr.node_cap, fr.K_CHUNK, fr.POLL_EVERY) == (98, 400, 24, 4)
+    assert np.array_equal(sol.status.numpy(), np.asarray(ref.status))
+    assert _rel(sol.fval.numpy(), np.asarray(ref.fval)).max() <= 1e-6
 
 
 # -- (g) MPC entry points and the closed-loop satellite -----------------------
@@ -448,16 +632,21 @@ def test_closed_loop_satellite_matches_jax():
 # -- (h) routing ---------------------------------------------------------------
 
 def test_routing_follows_jax_engine():
-    """float32: the incremental frontier (m <= 66); float64: the frontier
-    with the GI relax at m <= 64 and the Cholesky relax above, singles by
-    the DFS; float32 at m >= 67 raises, naming the ROADMAP item."""
+    """float32: the incremental frontier (m <= 66), the frontier rounds at
+    m >= 67; float64: the frontier with the GI relax at m <= 64 and the
+    Cholesky relax above, singles by the DFS; the same routes on CUDA."""
     assert _port("satellite", 20, True).engine.bnb_mode == "inc"
     assert _port("satellite", 20, False).engine.bnb_mode == "frontier"
     e64 = _port("invpend_contact", 4, False).engine
     assert e64.ldp.m == 88 and e64.bnb_mode == "frontier"
-    mpc, _ = tmpc.mpc_examples("invpend_contact", 4, 4)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        mpc.setup(device="cpu", dtype=torch.float32)
+    e32 = _port("invpend_contact", 4, True).engine
+    assert e32.bnb_mode == "rounds" and e32._rounds.arr.G.dtype == torch.float64
+    for dev in ("cpu", "cuda"):
+        for m, dt, mode in ((60, torch.float32, "inc"), (66, torch.float32, "inc"),
+                            (67, torch.float32, "rounds"), (88, torch.float32, "rounds"),
+                            (88, torch.float64, "frontier")):
+            assert route(dev, dt, m, binaries=True) == ("hybrid", mode)
+        assert route(dev, torch.float32, 88, binaries=True, symmetric=False) == ("hybrid", "dfs")
 
 
 def test_bnb_node_limit_reaches_engine():

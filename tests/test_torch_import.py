@@ -72,6 +72,39 @@ def test_largem_modules_leave_jax_out():
     assert math.isfinite(float(out.stdout.split()[-1]))
 
 
+def test_single_and_frontier_rounds_leave_jax_out():
+    """Batched ``solve_single`` (the float32 m = 11 path, an infeasible
+    single solve at m = 13 reporting -3) and the frontier rounds with the
+    Woodbury-maintained loop on a small hybrid problem, without pulling in
+    JAX."""
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "import linearmpc_tpu_torch as L\n"
+        "from linearmpc_tpu_torch.ops import bnb_frontier\n"
+        "mpc, _ = L.mpc_examples('invpend', 50, 11)\n"
+        "mpc.setup(device='cpu', dtype=torch.float32)\n"
+        "assert mpc.engine.path == 'single'\n"
+        "u = mpc.compute_control([5.0, 5.0, 0.0, 0.0])[0]\n"
+        "box, _ = L.mpc_examples('invpend')\n"
+        "box.add_constraint(Ax=np.eye(4), lb=-2 * np.ones(4), ub=2 * np.ones(4), ks=[2, 3])\n"
+        "box.setup(device='cpu', dtype=torch.float32)\n"
+        "assert box.solve(box.form_parameter(np.array([20.0, 0, 0, 0])))[2] == -3\n"
+        "sat, _ = L.mpc_examples('satellite', 6, 6)\n"
+        "sat.setup(device='cpu')\n"
+        "fr = bnb_frontier.FrontierRounds(sat.engine.arrays, None)\n"
+        "th = np.random.default_rng(0).uniform(-1, 1, (2, sat.engine.ldp.n_theta))\n"
+        "assert torch.all(fr.solve(th).status == 1) and fr.rounds > 0\n"
+        "print(u)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'linearmpc_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert math.isfinite(float(out.stdout.split()[-1]))
+
+
 def test_hybrid_and_lex_modules_leave_jax_out():
     """The branch-and-bound and hierarchy modules imported, a float32
     hybrid control (the incremental frontier on the plain K3 step) and a

@@ -170,11 +170,24 @@ def test_rollout_matches_jax_fused(path, monkeypatch):
 
 @pytest.mark.parametrize("Nc", [11, 12])
 def test_float32_tier_gap_raises(Nc):
-    """float32 at m = 11-12 (the JAX package runs its XLA solve_single
-    there) names its ROADMAP item."""
+    """float32 at m = 11-12, between K1's table and the large-m tiers, is
+    routed as the JAX package runs it, to batched solve_single (its XLA
+    fallback), on the CPU and on the card alike; the CPU engine takes that
+    path and solves the golden state (status 1, U within 1e-9 of the
+    NumPy oracle)."""
+    from linearmpc_tpu_torch.ops.engine import route
+
     mpc, _ = tmpc.mpc_examples("invpend", 50, Nc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mpc.setup(device="cpu", dtype=torch.float32)
+    mpc.setup(device="cpu", dtype=torch.float32)
+    eng = mpc.engine
+    assert eng.ldp.m == Nc and eng.path == "single"
+    for dev in ("cpu", "cuda"):
+        assert route(dev, torch.float32, Nc) == ("single", None)
+    th = mpc.form_parameter(np.array([5.0, 5.0, 0.0, 0.0]))
+    U, _f, status, _info = mpc.solve(th)
+    U_ref, *_rest, s_ref = solve_ldp_numpy(eng.ldp, th)
+    assert status == 1 == s_ref
+    assert np.abs(U - U_ref).max() <= 1e-9
 
 
 def test_compact_guard_ladder_resolves():
