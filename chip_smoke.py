@@ -48,7 +48,7 @@ their own or open new routes, again each counted:
   the frontier rounds on the float64 node arrays, held against the CPU
   float64 frontier, with its rounds, syncs a poll, solves/s and a profile;
   the float64 engine's Cholesky frontier on the same lanes; the JAX bench's
-  contact shape (Np = 6, m = 142, B = 8), each incumbent held against the
+  contact shape (Np = 6, m = 142, B = 4), each incumbent held against the
   float64 re-solve of its fixed-binary QP [22];
 * single solves through ``solve_single`` (K1 f32 and f64 for the golden
   u, K3 and the float64 continuation for an infeasible point, -3), float32
@@ -56,8 +56,21 @@ their own or open new routes, again each counted:
   and the B = 1 latency; the single solves' K1 and K3 launches replayed
   against their plain versions [23];
 
-and last two numbers not measured before: the small-m tier on aircraft at
+then two numbers not measured before: the small-m tier on aircraft at
 its full range, and the lexicographic path at m = 13 against the CPU [24].
+Last the offline analyses, whose device work is the float64 LP oracle
+(``ops/lp_ipm.py``, torch ops: no kernel of its own) and the batched point
+location, each phase timed:
+
+* the LP oracle: 1024 Chebyshev lanes against the CPU run and HiGHS, and
+  one IPM chunk's launches an iteration, QR share, syncs and time [25];
+* explicit MPC for invpend and ballplate at their default ranges (93 and
+  275 regions, the active sets of the HiGHS enumeration), point location
+  at B = 32768 against host ``evaluate`` and the float64 implicit engine,
+  invpend's BST with the exact-descent check, a checkpoint round trip
+  [26];
+* certification of invpend over its full range: 8909 regions, worst case
+  14, the IPM's device time against the wall [27].
 Every comparison of a kernel with its plain version requires every lane to
 agree and the outputs to be equal bit for bit. Every phase asserts; any
 failure exits non-zero.
@@ -75,6 +88,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -100,8 +114,12 @@ LANE_CASE = Path(__file__).resolve().parent / "tests" / "data" / "compact_lane19
 B_HYB, HYB_REF = 512, 32  # hybrid satellite batch (bench.py:615), lanes vs CPU f64
 B_LEX, LEX_REF = 8192, 256  # lexicographic batch (bench.py:587), lanes vs CPU f64
 # the contact problem at m = 88 (tests/test_hybrid.py:370-376), lanes vs CPU
-# f64; the JAX bench's contact batch at m = 142 (bench.py:755-760)
-B_CONTACT, CONTACT_REF, B_BENCH_CONTACT = 16, 4, 8
+# f64; the JAX bench's contact shape at m = 142 (bench.py:755-760), its batch
+# cut from the bench's 8 lanes to 4 to keep the run's time with [25]-[27]
+B_CONTACT, CONTACT_REF, B_BENCH_CONTACT = 16, 4, 4
+B_LP = 1024                 # LP oracle lanes (tests/test_lp_oracle.py's generator)
+B_EVAL = 32768              # explicit point-location batch
+CERT_SAMPLE = 8             # every 8th IPM call of [27] replayed under the profiler
 KERNELS = ("bulk", "polish", "iu", "ciu")
 COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu)  # each module's LAUNCHES
 PATHS = ("small", "iu", "compact", "hybrid", "lex", "contact", "single", "exact", "nonsym")
@@ -713,9 +731,9 @@ def binary_offsets(mpc, U, lanes) -> float:
     return worst
 
 
-def count_syncs(fn) -> int:
-    """Synchronizing calls that ``fn`` makes, from the sync debug mode
-    "warn" (which, by its own account, may miss some)."""
+def sync_sites(fn) -> list:
+    """file:line of each synchronizing call that ``fn`` makes, from the
+    sync debug mode "warn"."""
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -724,7 +742,14 @@ def count_syncs(fn) -> int:
             fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return sum("synchroniz" in str(w.message) for w in caught)
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def count_syncs(fn) -> int:
+    """Synchronizing calls that ``fn`` makes, from the sync debug mode
+    "warn" (which, by its own account, may miss some)."""
+    return len(sync_sites(fn))
 
 
 def step_bound(args, st) -> tuple[float, str]:
@@ -1315,6 +1340,279 @@ def unmeasured_phases(dev):
           f"lex m=13 vs CPU: |dU| {dU_l:.3e}")
 
 
+def oracle_lanes(B, m=24, nth=7, seed=0):
+    """``tests/test_lp_oracle.py``'s Chebyshev instances: normalized random
+    rows, mixed feasible and empty, box +-10."""
+    rng = np.random.default_rng(seed)
+    As, bs = np.zeros((B, m, nth)), np.ones((B, m))
+    for i in range(B):
+        k = rng.integers(5, m)
+        A = rng.standard_normal((k, nth))
+        A /= np.linalg.norm(A, axis=1, keepdims=True)
+        bs[i, :k] = A @ rng.uniform(-5, 5, nth) + rng.uniform(-0.5, 2.0, k)
+        As[i, :k] = A
+    return As, bs, -10 * np.ones(nth), 10 * np.ones(nth)
+
+
+def launches_of(fn) -> int:
+    """Kernel launches ``fn`` makes (the launch calls the profiler records:
+    cudaLaunchKernel, cuLaunchKernel and their variants)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+
+
+def device_busy_ms(fn) -> float:
+    """Device kernel time of one call of ``fn`` from torch.profiler (0.0
+    where the profiler recorded none)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+
+
+def lp_oracle_phase(dev):
+    """Phase [25]: the batched float64 interior-point LP oracle on the card,
+    1024 Chebyshev lanes against the same function on the CPU and against
+    HiGHS on the converged lanes; then the profile of one IPM iteration and
+    the time of one chunk."""
+    from linearmpc_tpu_torch.explicit import _chebyshev_radius
+    from linearmpc_tpu_torch.ops import lp_ipm
+
+    t_phase = time.perf_counter()
+    As, bs, lb, ub = oracle_lanes(B_LP)
+    stats = {}
+    r, _cen, gap = lp_ipm.chebyshev_batch(As, bs, lb, ub, stats=stats)
+    r_c, _cen_c, gap_c = lp_ipm.chebyshev_batch(As, bs, lb, ub, device="cpu")
+    conv = (gap <= 1e-9) & (gap_c <= 1e-9)
+    d_cpu = float(np.max(np.abs(r - r_c)[conv])) if conv.any() else 0.0
+    d_highs, sign_ok = 0.0, True
+    for i in np.where(gap <= 1e-9)[0]:
+        A = As[i][np.abs(As[i]).sum(1) > 0]
+        r_h, _c_h = _chebyshev_radius(A, bs[i][: len(A)], lb, ub)  # -inf: empty
+        sign_ok &= bool((r[i] > 1e-7) == (r_h > 1e-7))
+        if np.isfinite(r_h):
+            d_highs = max(d_highs, abs(r[i] - r_h))
+    log(f"[25] LP oracle on the card: chebyshev_batch, {B_LP} lanes (m=24, nth=7, seed 0), "
+        f"{stats}: {int(np.sum(gap <= 1e-9))} converged lanes (gap <= 1e-9); vs the CPU "
+        f"run: verdicts equal {bool(np.array_equal(r > 0, r_c > 0))}, max |dr| {d_cpu:.3e} "
+        f"on lanes converged in both; vs HiGHS: max |r - r_HiGHS| {d_highs:.3e}, signs "
+        f"agree {sign_ok}")
+    check(stats == {"ipm_chunks": 1, "ipm_lanes": B_LP}, f"LP oracle: {stats}")
+    check(np.array_equal(r > 0, r_c > 0), "LP oracle: a verdict differs from the CPU run")
+    check(d_cpu <= 1e-9, f"LP oracle vs CPU: |dr| {d_cpu:.3e} > 1e-9")
+    check(d_highs <= 1e-7 and sign_ok, f"LP oracle vs HiGHS: |dr| {d_highs:.3e}, signs {sign_ok}")
+    check(int(np.sum(gap <= 1e-9)) >= B_LP * 9 // 10, "LP oracle: fewer than 90% converged")
+
+    # one chunk's IPM on the card: its launches an iteration, QR's share,
+    # its host syncs, its time
+    A, b, c, x0 = (torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device=dev)
+                   for a in lp_ipm.chebyshev_lp(As, bs, lb, ub))
+    ipm = lambda n: lp_ipm.lp_ipm_batch(A, b, c, x0, n_iter=n)
+    per_iter = launches_of(lambda: ipm(2)) - launches_of(lambda: ipm(1))
+    sites_1, sites_45 = sync_sites(lambda: ipm(1)), sync_sites(lambda: ipm(45))
+    ms_45, ms_1 = cuda_ms(lambda: ipm(45), 5), cuda_ms(lambda: ipm(1), 20)
+    ms_iter = (ms_45 - ms_1) / 44
+    n = A.shape[2]
+    W = torch.cat([A, torch.eye(n, dtype=A.dtype, device=dev).expand(A.shape[0], n, n)], 1)
+    ms_qr = cuda_ms(lambda: torch.linalg.qr(W, mode="r"), 20)
+    qr_launches = launches_of(lambda: torch.linalg.qr(W, mode="r"))
+    busy = device_busy_ms(lambda: ipm(45))
+    ms_chunk = float(np.median(host_ms(
+        lambda: lp_ipm.chebyshev_batch(As, bs, lb, ub, device=dev), 5)))
+    # the bound of one chunk: its inputs and outputs once, and per
+    # iteration the QR of the (m + n) x n matrix (2 m n^2 flops) and the
+    # products with A (about 8 m n), in float64
+    Bc, m = A.shape[0], A.shape[1]
+    flops = 45 * Bc * (2 * (m + n) * n * n + 8 * m * n)
+    bnd = bound(nbytes(A, b, c, x0) + 8 * Bc * (2 * n + 2), flops, torch.float64)
+    log(f"    one IPM chunk, B={Bc}, {m} x {n} rows (45 iterations): {per_iter} kernel launches "
+        f"an iteration ({qr_launches} of them the QR); {ms_iter:.3f} ms an iteration, the QR "
+        f"alone {ms_qr:.3f} ms ({100 * ms_qr / ms_iter:.1f}%); lp_ipm_batch {ms_45:.3f} ms, "
+        f"device kernels {busy:.3f} ms of it (busy {100 * busy / ms_45:.1f}%); "
+        f"chebyshev_batch with its host assembly and copies {ms_chunk:.3f} ms; bound "
+        f"{bnd[0]:.4f} ms ({bnd[1]}); synchronizing calls in lp_ipm_batch: {len(sites_1)} "
+        f"at 1 iteration, {len(sites_45)} at 45 ({', '.join(sites_45) or 'none'}); "
+        f"on {card_line()}")
+    check(len(sites_45) == len(sites_1), "lp_ipm_batch syncs the host inside its loop")
+    log(f"    [25] {time.perf_counter() - t_phase:.1f} s")
+
+
+def explicit_thetas(mpc, prange, rng, B):
+    """theta as ``tests/test_explicit.py:43-60`` draws it for invpend: the
+    inner 75% of the range in x, r, d and p, u_prev over its whole range."""
+    lo, hi = prange.lower(), prange.upper()
+    nx, nr, nd, nuprev, _np = mpc.get_parameter_dims()
+    scale = np.full(len(lo), 0.75)
+    scale[nx + nr + nd: nx + nr + nd + nuprev] = 1.0
+    return (lo + hi) / 2 + scale * (hi - lo) / 2 * rng.uniform(-1.0, 1.0, (B, len(lo)))
+
+
+def explicit_phase(dev):
+    """Phase [26]: explicit MPC for invpend and ballplate at their default
+    ranges with the LP oracle on the card (through setup() with no device),
+    held against the host (HiGHS) enumeration; batched point location at
+    B = 32768 against host ``evaluate`` and the float64 implicit engine on
+    the card; the BST on invpend; a checkpoint round trip."""
+    t_phase = time.perf_counter()
+    for name, n_regions in (("invpend", 93), ("ballplate", 275)):
+        mpc, prange = L.mpc_examples(name)
+        mpc.setup()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        empc = L.build_explicit(mpc, prange=prange)
+        t_enum = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e_host = L.build_explicit(mpc, prange=prange, oracle="host")
+        t_host = time.perf_counter() - t0
+        sets = sorted(cr.active_set for cr in empc.regions)
+        same = sets == sorted(cr.active_set for cr in e_host.regions)
+        st = empc.stats
+        log(f"[26] explicit {name} (nth={empc.nth}): {len(sets)} regions, the same active sets "
+            f"as the HiGHS enumeration {same}; enumeration {t_enum:.2f} s with the oracle on "
+            f"{empc.device}: {st['ipm_chunks']} IPM chunks, {st['ipm_lanes']} lanes, "
+            f"{st['highs']} lanes confirmed by HiGHS; HiGHS enumeration {t_host:.2f} s "
+            f"({e_host.stats['highs']} LPs)")
+        check(empc.device.type == "cuda" and st["ipm_chunks"] > 0, f"{name}: oracle not on the card")
+        check(len(sets) == n_regions, f"{name}: {len(sets)} regions, {n_regions} expected")
+        check(same, f"{name}: active sets differ from the HiGHS enumeration")
+
+        th = explicit_thetas(mpc, prange, np.random.default_rng(6), B_EVAL)
+        th_dev = torch.as_tensor(th, device=dev)
+        u, viol = empc.evaluate_batch(th_dev)
+        check(u.is_cuda and u.dtype == torch.float64 and u.shape == (B_EVAL, empc.nu),
+              f"{name}: evaluate_batch gave {u.device} {u.dtype} {tuple(u.shape)}")
+        ms_eval = cuda_ms(lambda: empc.evaluate_batch(th_dev), 10)
+        u_h, viol_h = u[:N_ORACLE].cpu().numpy(), viol[:N_ORACLE].cpu().numpy()
+        inside = np.where(viol_h < 1e-8)[0]
+        d_host = max((float(np.max(np.abs(u_h[i] - empc.evaluate(th[i])))) for i in inside),
+                     default=0.0)
+        m64, _ = L.mpc_examples(name)
+        m64.setup(device=dev, dtype=torch.float64)
+        sol = m64.engine.solve_batch(th_dev[:N_ORACLE])
+        U, st64 = sol.U.cpu().numpy(), sol.status.cpu().numpy()
+        nu, nx = m64.model.nu, m64.model.nx
+        u_imp = U[:, :nu] - th[:N_ORACLE, :nx] @ m64.K.T
+        both = (viol_h < 1e-8) & (st64 == 1)
+        d_imp = float(np.max(np.abs(u_h - u_imp)[both])) if both.any() else 0.0
+        log(f"    evaluate_batch B={B_EVAL} float64: {ms_eval:.3f} ms = "
+            f"{B_EVAL / ms_eval * 1e3:,.0f} evaluations/s; {int(np.sum(viol.cpu().numpy() < 1e-8))} "
+            f"lanes inside a region; first {N_ORACLE}: vs host evaluate max |du| {d_host:.3e} on "
+            f"{len(inside)} lanes, vs the float64 implicit engine on the card ({m64.engine.path}) "
+            f"{d_imp:.3e} on {int(both.sum())} lanes; on {card_line()}")
+        check(len(inside) >= N_ORACLE // 2, f"{name}: {len(inside)} of {N_ORACLE} lanes inside")
+        check(d_host <= 1e-9, f"{name}: evaluate_batch vs evaluate {d_host:.3e} > 1e-9")
+        check(int(both.sum()) >= N_ORACLE // 2 and d_imp <= 1e-6,
+              f"{name}: evaluate_batch vs the implicit engine {d_imp:.3e} on {int(both.sum())} lanes")
+        if name == "invpend":
+            explicit_tree_and_checkpoint(empc, th_dev)
+    log(f"    [26] {time.perf_counter() - t_phase:.1f} s")
+
+
+def explicit_tree_and_checkpoint(empc, th_dev):
+    """[26] on invpend: the BST at leaf size 3 with the exact-descent check
+    of ``tests/test_explicit.py::test_bst_exact_descent`` on 200 points,
+    and a save_explicit / load_explicit round trip."""
+    t0 = time.perf_counter()
+    empc.build_tree(leaf_size=3)
+    t_tree = time.perf_counter() - t0
+    A, b, kids, leaf_off, leaf_reg, depth, _root = empc.bst_arrays()
+    rng = np.random.default_rng(11)
+    n_checked = 0
+    for _ in range(200):
+        theta = np.concatenate([rng.uniform(-15, 15, 4), rng.uniform(-15, 15, 2),
+                                rng.uniform(-2, 2, 1)])
+        u_scan = empc.evaluate(theta)
+        if u_scan is None:
+            continue
+        node = 0
+        for _d in range(depth + 1):
+            node = kids[node, 1] if A[node] @ theta - b[node] > 0 else kids[node, 0]
+            if node < 0:
+                break
+        check(node < 0, "BST: a descent did not end in a leaf")
+        cands = leaf_reg[leaf_off[-node - 1]:leaf_off[-node]]
+        hit = [r for r in cands if np.max(empc.regions[r].Ath @ theta - empc.regions[r].bth,
+                                          initial=-np.inf) <= 1e-8]
+        check(bool(hit), "BST: a leaf misses the region holding theta")
+        cr = empc.regions[hit[0]]
+        check(np.allclose(cr.F[: empc.nu] @ theta + cr.g[: empc.nu], u_scan, atol=1e-9),
+              "BST: the leaf's law differs from the scan")
+        n_checked += 1
+    check(n_checked > 120, f"BST: {n_checked} points checked")
+    log(f"    BST leaf size 3: {t_tree:.2f} s to build on the card's oracle, depth {depth}, "
+        f"{len(leaf_off) - 1} leaves; exact descent on {n_checked} of 200 points")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/empc.npz"
+        L.save_explicit(empc, path)
+        back = L.load_explicit(path)
+        u_back, _viol = back.evaluate_batch(th_dev[:N_ORACLE])
+    u_src, _viol = empc.evaluate_batch(th_dev[:N_ORACLE])
+    check(back.device.type == "cuda" and torch.equal(u_back, u_src),
+          "save_explicit / load_explicit: u differs")
+    log(f"    save_explicit / load_explicit: {len(back.regions)} regions, u on {N_ORACLE} "
+        f"lanes equal after the round trip (on {back.device})")
+
+
+def certification_phase(dev):
+    """Phase [27]: iteration certification of invpend over its full
+    default range with the LP oracle on the card. The IPM calls are timed
+    on the host as they run and their inputs kept; afterwards every
+    ``CERT_SAMPLE``-th call is replayed under torch.profiler for its device
+    kernel time, scaled to all calls (the profiler's processing of all
+    of them would take longer than the certification; a call's device time
+    is its ~3000 small kernels, near 2 us each whatever the chunk's
+    shape)."""
+    from linearmpc_tpu_torch.ops import lp_ipm
+
+    t_phase = time.perf_counter()
+    mpc, prange = L.mpc_examples("invpend")
+    mpc.setup()
+    ipm, calls, ipm_s = lp_ipm.lp_ipm_batch, [], [0.0]
+
+    def timed(A, b, c, x0, *, n_iter):
+        t0 = time.perf_counter()
+        out = ipm(A, b, c, x0, n_iter=n_iter)
+        torch.cuda.synchronize()
+        ipm_s[0] += time.perf_counter() - t0
+        calls.append((A, b, c, x0, n_iter))
+        return out
+
+    lp_ipm.lp_ipm_batch = timed
+    try:
+        t0 = time.perf_counter()
+        res = L.certify(mpc, prange=prange)
+        wall = time.perf_counter() - t0
+    finally:
+        lp_ipm.lp_ipm_batch = ipm
+    sample = calls[::CERT_SAMPLE]
+    busy = device_busy_ms(lambda: [ipm(A, b, c, x0, n_iter=k) for A, b, c, x0, k in sample])
+    busy *= len(calls) / len(sample)
+    st = res.stats
+    log(f"[27] certification, invpend, full default range, oracle on {dev}: {len(res.partition)} "
+        f"regions, worst case {res.max_iterations} iterations, exhausted {res.exhausted}; "
+        f"{wall:.1f} s; {st['ipm_chunks']} IPM chunks, {st['ipm_lanes']} lanes, "
+        f"{st['highs']} lanes confirmed by HiGHS; IPM calls {ipm_s[0]:.2f} s on the host clock "
+        f"({100 * ipm_s[0] / wall:.1f}% of the wall), their device kernels {busy / 1e3:.3f} s "
+        f"({100 * busy / 1e3 / wall:.2f}% of the wall; every {CERT_SAMPLE}th call replayed, "
+        f"scaled) on {card_line()}")
+    check(not res.exhausted, "certification exhausted")
+    check(len(res.partition) == 8909, f"certification: {len(res.partition)} regions, 8909 expected")
+    check(res.max_iterations == 14, f"certification: worst case {res.max_iterations}, 14 expected")
+    check(len(calls) == st["ipm_chunks"], "certification: IPM calls not counted")
+    log(f"    [27] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -1677,6 +1975,9 @@ def main() -> int:
     contact_phases(dev, by_path)
     single_k1_rows, single_k3_rows = single_phases(dev, by_path)
     unmeasured_phases(dev)
+    lp_oracle_phase(dev)
+    explicit_phase(dev)
+    certification_phase(dev)
 
     # the counts of each kernel on each path's run
     per_path = lambda k: {p: by_path[p][k] for p in PATHS}

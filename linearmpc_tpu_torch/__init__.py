@@ -9,11 +9,16 @@ IU and compact float32 tiers on four hand-written CUDA kernels (K1
 ``ops/ciu.py``), batched ``solve_single`` for single solves and the
 float32 fallbacks, hybrid branch-and-bound (the node frontiers and the
 depth-first search) and the lexicographic hierarchy. Around it: closed-loop
-simulation and batched rollout, and Kalman / offset-free observers.
+simulation and batched rollout, and Kalman / offset-free observers. The
+offline analyses: explicit MPC (``explicit.py``: region enumeration, a
+point-location BST, batched point location on the device), iteration
+certification (``certify.py``) and invariant sets (``invariant.py``), on
+the batched float64 interior-point LP oracle (``ops/lp_ipm.py``); LP
+feasibility certificates (``ops/lp_cert.py``), state-space models
+(``models/statespace.py``) and checkpoints (``checkpoint.py``).
 
-The package imports torch and NumPy only, never ``jax`` or
-``linearmpc_tpu``. Modules of the JAX package not ported yet (lp_ipm,
-explicit, certify, invariant, lp_cert, statespace, checkpoint, codegen,
+The package imports torch, NumPy and SciPy only, never ``jax`` or
+``linearmpc_tpu``. Modules of the JAX package not ported yet (codegen,
 native_runtime, plotting, profiling, parallel) are listed in ROADMAP.md.
 """
 
@@ -45,6 +50,11 @@ from .types import (
 )
 from .utils.formatting import label2id, make_subscript, prettify_parameter_label
 from .utils.linalg import dare, kalman_gain, matrixify, zoh
+from .explicit import ExplicitMPC, build_explicit, make_singlesided
+from .certify import CertificationResult, certify
+from .invariant import eliminate, invariant_set, minrep
+from .models.statespace import model_from_statespace
+from .checkpoint import load_explicit, load_problem, save_explicit, save_problem
 
 __version__ = "0.1.0"
 
@@ -59,6 +69,9 @@ __all__ = [
     "constraint_violation", "format_move_block", "dare", "kalman_gain",
     "matrixify", "zoh", "build_rollout", "RolloutResult",
     "mpc_example", "mpc_examples", "mpc_example_names",
+    "ExplicitMPC", "build_explicit", "make_singlesided", "CertificationResult", "certify",
+    "eliminate", "invariant_set", "minrep", "model_from_statespace",
+    "load_explicit", "load_problem", "save_explicit", "save_problem",
 ]
 
 

@@ -21,7 +21,10 @@ ladder's capacity). K3's resumable entry (``iu.step_iu``) is held against
 its plain step cold in both instantiations at ragged batches and on every
 launch of an incremental-frontier run; the hybrid engine on the card
 against the CPU float64 frontier, and the lexicographic hierarchy on K1's
-float64 instantiation against the CPU ``LexSolver``.
+float64 instantiation against the CPU ``LexSolver``. The offline analyses
+run no kernel of their own: the float64 LP oracle on the card against its
+CPU run, invpend's explicit enumeration on the card against the CPU's, and
+batched point location on the card against host ``evaluate``.
 """
 
 import numpy as np
@@ -765,3 +768,68 @@ def test_lex_wide_on_card_matches_cpu():
     assert bulk.LAUNCHES == before
     assert torch.equal(sol.status.cpu(), sol_ref.status) and bool((sol_ref.status == 1).all())
     assert (sol.U.cpu() - sol_ref.U).abs().max().item() <= 1e-8
+
+
+def _oracle_lanes(B=1024, m=24, nth=7, seed=0):
+    """``tests/test_lp_oracle.py``'s generator at 1024 lanes."""
+    rng = np.random.default_rng(seed)
+    As, bs = np.zeros((B, m, nth)), np.ones((B, m))
+    for i in range(B):
+        k = rng.integers(5, m)
+        A = rng.standard_normal((k, nth))
+        A /= np.linalg.norm(A, axis=1, keepdims=True)
+        bs[i, :k] = A @ rng.uniform(-5, 5, nth) + rng.uniform(-0.5, 2.0, k)
+        As[i, :k] = A
+    return As, bs, -10 * np.ones(nth), 10 * np.ones(nth)
+
+
+def test_chebyshev_batch_on_card_matches_cpu():
+    """The float64 LP oracle on the card (no device named) against the
+    same function on the CPU: the same verdict on every lane, radius and
+    gap within 1e-9."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from linearmpc_tpu_torch.ops import lp_ipm
+
+    As, bs, lb, ub = _oracle_lanes()
+    stats = {}
+    r, _c, gap = lp_ipm.chebyshev_batch(As, bs, lb, ub, stats=stats)
+    r_c, _c_c, gap_c = lp_ipm.chebyshev_batch(As, bs, lb, ub, device="cpu")
+    assert stats == {"ipm_chunks": 1, "ipm_lanes": 1024}
+    assert np.array_equal(r > 0, r_c > 0)
+    assert np.max(np.abs(r - r_c)) <= 1e-9
+    assert np.max(np.abs(gap - gap_c)) <= 1e-9
+
+
+def _explicit_invpend(device):
+    mpc, prange = tmpc.mpc_examples("invpend")
+    mpc.setup(device=device)
+    return tmpc.build_explicit(mpc, prange=prange)
+
+
+def test_explicit_on_card_matches_cpu():
+    """invpend's enumeration with the LP oracle on the card: the same 93
+    active sets as on the CPU; the controller keeps the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    e_d, e_c = _explicit_invpend("cuda"), _explicit_invpend("cpu")
+    assert e_d.device.type == "cuda" and e_d.stats["ipm_chunks"] > 0
+    sets = sorted(cr.active_set for cr in e_d.regions)
+    assert sets == sorted(cr.active_set for cr in e_c.regions) and len(sets) == 93
+
+
+def test_evaluate_batch_on_card_matches_host_evaluate():
+    """Batched point location on the card (float64) against the host
+    ``evaluate`` where the point lies in a region (1e-9)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    e_d = _explicit_invpend("cuda")
+    rng = np.random.default_rng(6)
+    th = np.hstack([rng.uniform(-15, 15, (4096, 6)), rng.uniform(-2, 2, (4096, 1))])
+    u, viol = e_d.evaluate_batch(th)
+    assert u.is_cuda and u.dtype == torch.float64
+    u, viol = u.cpu().numpy(), viol.cpu().numpy()
+    inside = np.where(viol < 1e-8)[0]
+    assert len(inside) >= 3500
+    for i in inside[:256]:
+        assert np.max(np.abs(u[i] - e_d.evaluate(th[i]))) <= 1e-9

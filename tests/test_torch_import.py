@@ -133,3 +133,28 @@ def test_hybrid_and_lex_modules_leave_jax_out():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert math.isfinite(float(out.stdout.split()[-1]))
+
+
+def test_offline_modules_leave_jax_out():
+    """The offline modules imported and invpend's explicit controller built
+    (the LP oracle on the CPU) and evaluated, without pulling in JAX."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import linearmpc_tpu_torch as L\n"
+        "from linearmpc_tpu_torch import certify, checkpoint, explicit, invariant\n"
+        "from linearmpc_tpu_torch.models import statespace\n"
+        "from linearmpc_tpu_torch.ops import lp_cert, lp_ipm\n"
+        "mpc, prange = L.mpc_examples('invpend')\n"
+        "mpc.setup(device='cpu')\n"
+        "empc = L.build_explicit(mpc, prange=prange)\n"
+        "assert len(empc.regions) == 93 and empc.stats['ipm_chunks'] > 0\n"
+        "u, viol = empc.evaluate_batch(np.zeros((2, empc.nth)))\n"
+        "print(empc.compute_control([5.0, 5.0, 0.0, 0.0], uprev=[0.0])[0])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'linearmpc_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert abs(float(out.stdout.split()[-1]) - 1.7612519326) < 1e-6
