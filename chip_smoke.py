@@ -71,6 +71,22 @@ location, each phase timed:
   [26];
 * certification of invpend over its full range: 8909 regions, worst case
   14, the IPM's device time against the wall [27].
+
+Last the deployment and tooling paths and the multi-device solver, which
+run the kernels through new entry points:
+
+* the generated C of invpend (gcc) against the engine on the card on 256
+  states, the explicit C against ``evaluate_batch`` on the card, and the
+  native C++ CPU runtime against the card at B = 512 [28];
+* ``export_compiled`` / ``load_compiled`` at B = 1024 for invpend (K1) and
+  the m = 48 problem (K3), the replay bit for bit against a direct
+  ``solve_single``, its launches counted alone (path ``export``) [29];
+* ``instrument`` on the cold B = 32768 tier, ``overlap_report`` (K1 on a
+  second stream beside K2; path ``overlap``), ``mfu_report`` of K1 and K3
+  from ``profiling.py``'s models, and a profiler trace [30];
+* the mp-Schur row-sharded solver on a 1 x 1 mesh (NCCL, a world of one)
+  at the JAX bench's m = 1024, B = 256, against the NumPy oracle, and the
+  threshold and hybrid rules of ``attach_mesh`` [31].
 Every comparison of a kernel with its plain version requires every lane to
 agree and the outputs to be equal bit for bit. Every phase asserts; any
 failure exits non-zero.
@@ -83,6 +99,7 @@ verdict.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import re
@@ -98,7 +115,13 @@ import torch
 
 import linearmpc_tpu_torch as L
 from linearmpc_tpu_torch.ops import bulk, ciu, cuda_lib, iu, polish
+from linearmpc_tpu_torch import profiling
+from linearmpc_tpu_torch.native_runtime import NativeBatchSolver
+from linearmpc_tpu_torch.ops.dual_active_set import solve_single
 from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
+# the bound of a kernel (its bytes at HBM3's rate, its operations at the
+# card's highest rate for their type): one definition with the port's models
+from linearmpc_tpu_torch.profiling import bound, gi_bound, k1_bound, k2_bound, nbytes, step_bound
 
 GOLDEN_U = 1.7612519326
 B_COLD = 32768              # cold stream batch (bench.py:90)
@@ -122,12 +145,8 @@ B_EVAL = 32768              # explicit point-location batch
 CERT_SAMPLE = 8             # every 8th IPM call of [27] replayed under the profiler
 KERNELS = ("bulk", "polish", "iu", "ciu")
 COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu)  # each module's LAUNCHES
-PATHS = ("small", "iu", "compact", "hybrid", "lex", "contact", "single", "exact", "nonsym")
-# the bound of a kernel: its bytes at HBM3's rate and its operations at the
-# card's highest rate for their type (H100 SXM, NVIDIA's data sheet: float32
-# outside the tensor cores, float64 on them)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
+PATHS = ("small", "iu", "compact", "hybrid", "lex", "contact", "single", "exact", "nonsym",
+         "export", "overlap")
 # the discrete outputs of K3 / K4 compared lane by lane (index in the returns)
 K3_FIELDS = dict(act=1, side=2, iters=3, done=4, infeas=5)
 K4_FIELDS = dict(K3_FIELDS, ovf=6, slots=7)
@@ -255,50 +274,35 @@ def read_counts() -> dict:
     return {k: mod.LAUNCHES for k, mod in COUNTED.items()}
 
 
-def nbytes(*tensors) -> int:
-    """Bytes the tensors hold, each read or written once (a broadcast view
-    counts the one matrix it views)."""
-    return sum(min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
-               for t in tensors if isinstance(t, torch.Tensor))
-
-
-def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
-    """(least ms, what sets it) for moving n_bytes and doing flops."""
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
-
-
-def gi_bound(args, out) -> tuple[float, str]:
-    """K3/K4's bound on this run's data: inputs and outputs once, and per
-    lane-iteration the products over its working set W (|W| at exit): the
-    jump, the GI direction and the Woodbury product on the inverse (s x |W|
-    each), the slack G @ lam_base (m x |W|) and the rank-2 update (|W|^2).
-    The slot maps, int64 at the wrapper, move as int32 in the kernel."""
-    m, s = args[2].shape[1], args[-1].shape[-1]
-    w = out[1].sum(1).double()
-    flops = float((out[3].double() * (2 * (3 * s * w + m * w) + 4 * w * w)).sum())
-    moved = sum(nbytes(t) // (2 if t.dtype == torch.int64 else 1)
-                for t in (*args, *out) if isinstance(t, torch.Tensor))
-    return bound(moved, flops, args[2].dtype)
-
-
-def kernel_device_ms(fn, name: str):
+def kernel_device_ms(fn, name: str, window_s: float = 0.05):
     """Mean device time of one launch of the kernels whose name holds
     ``name`` after no letter (iu_kernel is not ciu_kernel), from
-    torch.profiler over what ``fn`` launches; None where it saw none."""
+    torch.profiler over what ``fn`` launches, repeated to fill a window of
+    at least ``window_s`` on the host clock (the profiler recorded no device
+    event at all in windows of a few short launches); None where it saw
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
+    reps = max(1, min(200, int(window_s / max(time.perf_counter() - t0, 1e-6)) + 1))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages()
             if getattr(e, "device_type", None) == DeviceType.CUDA
             and re.search(rf"(?<![A-Za-z_]){name}", e.key)]
     us, n = sum(getattr(e, "self_device_time_total", 0.0) for e in hits), sum(e.count for e in hits)
-    return us / n / 1e3 if us and n else None
+    if not (us and n):
+        seen = sorted({e.key[:70] for e in prof.key_averages()
+                       if getattr(e, "device_type", None) == DeviceType.CUDA})
+        log(f"      (profiler saw no {name} launch with device time: {len(seen)} device "
+            f"event names {seen[:6]}, hits {[(e.key[:70], e.count) for e in hits]})")
+        return None
+    return us / n / 1e3
 
 
 def phase1_inputs(eng, thetas, dtype):
@@ -570,24 +574,6 @@ def replay_launches(launches: dict, timed: bool = True) -> dict:
     return rows
 
 
-def k1_bound(args, out) -> tuple[float, str]:
-    """K1's bound on this run's data: inputs and outputs once, and per
-    lane-iteration the subset solve and the slack (2 m^2 each) and O(m)
-    tests."""
-    m = args[2].shape[1]
-    flops = float(out[3].double().sum()) * (4 * m * m + 10 * m)
-    return bound(nbytes(*args) + nbytes(*out), flops, args[2].dtype)
-
-
-def k2_bound(pd, args, out) -> tuple[float, str]:
-    """K2's bound: the statics, theta, the masks and the outputs once, and
-    per lane the products of polish_plain."""
-    B, m = args[2].shape
-    n_u, nth = pd.Uth_off.shape
-    flops = B * 2 * (m * nth + 2 * m * m + 2 * n_u * nth + n_u * m + n_u * n_u + 2 * n_u)
-    return bound(nbytes(pd.subset, pd.packed, *args[1:]) + nbytes(*out), flops, torch.float64)
-
-
 def small_launches(mpc, th_dev, x0s, rs) -> dict:
     """The K1/K2 launches of the small-m path, as (fn, args, kwargs) by
     label: the cold tier's f32 bulk phase, its f64 stragglers and its K2,
@@ -750,19 +736,6 @@ def count_syncs(fn) -> int:
     """Synchronizing calls that ``fn`` makes, from the sync debug mode
     "warn" (which, by its own account, may miss some)."""
     return len(sync_sites(fn))
-
-
-def step_bound(args, st) -> tuple[float, str]:
-    """K3 step's bound on this run's data: the inputs (the entry state but
-    its iteration count) and the new state once, and per lane-iteration the
-    products of ``gi_bound``; pend moves as int32 in the kernel."""
-    m = args[2].shape[1]
-    w = st.act.sum(1).double()
-    flops = float((st.iters.double() * (2 * (3 * m * w + m * w) + 4 * w * w)).sum())
-    entry = [t for f, t in zip(iu.IUState._fields, args[6]) if f != "iters"]
-    moved = sum(nbytes(t) // (2 if t.dtype == torch.int64 else 1)
-                for t in (*args[:6], *entry, *st))
-    return bound(moved, flops, args[2].dtype)
 
 
 def compare_step(label, args, kw):
@@ -1613,6 +1586,212 @@ def certification_phase(dev):
     log(f"    [27] {time.perf_counter() - t_phase:.1f} s")
 
 
+def c_control(lib, theta, nx, nr):
+    """(flag, u[0]) of a generated controller at one theta (x, r, u_prev):
+    u_prev through mpc_set_uprev, then mpc_compute_control."""
+    ct = ctypes.c_double
+    x, r, up = theta[:nx], theta[nx:nx + nr], theta[nx + nr:]
+    lib.mpc_set_uprev((ct * len(up))(*up))
+    u = (ct * 8)()
+    flag = lib.mpc_compute_control(u, (ct * nx)(*x), (ct * nr)(*r), None)
+    return flag, u[0]
+
+
+def gcc_lib(cpath: str) -> ctypes.CDLL:
+    so = cpath[:-2] + ".so"
+    subprocess.run(["gcc", "-O2", "-fPIC", "-shared", "-o", so, cpath, "-lm"], check=True,
+                   timeout=120)
+    return ctypes.CDLL(so)
+
+
+def codegen_phase(dev):
+    """Phase [28]: the generated C of invpend (gcc) against the engine on the
+    card, the explicit C against ``evaluate_batch`` on the card, and the
+    native C++ runtime against the card engine."""
+    t_phase = time.perf_counter()
+    mpc, prange = L.mpc_examples("invpend")
+    mpc.setup()
+    eng = mpc.engine
+    nx, nr, _nd, _nup, _np = mpc.get_parameter_dims()
+    th = explicit_thetas(mpc, prange, np.random.default_rng(28), 256)
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = gcc_lib(L.codegen_c(mpc, f"{tmp}/c"))
+        flag_g, u_g = c_control(lib, mpc.form_parameter([5.0, 5.0, 0.0, 0.0], uprev=[0.0]),
+                                nx, nr)
+        res = [c_control(lib, t, nx, nr) for t in th]
+        flags = np.array([f for f, _u in res])
+        u_c = np.array([u for _f, u in res])
+        sol = eng.solve_batch(torch.as_tensor(th, device=dev))
+        u_card = (sol.U[:, 0] - torch.as_tensor(th[:, :nx] @ mpc.K[0], device=dev)).cpu().numpy()
+        d_c = float(np.abs(u_c - u_card).max())
+        log(f"[28] codegen: the generated C (gcc) golden u = {u_g:.10f} flag {flag_g}; 256 "
+            f"states: flags all 1 {bool((flags == 1).all())}, max |u_C - u_card| {d_c:.3e} "
+            f"(engine {eng.device} {str(eng.dtype)[6:]})")
+        check(flag_g == 1 and abs(u_g - GOLDEN_U) <= 1e-6, f"generated C golden u {u_g}")
+        check(bool((flags == 1).all()), f"generated C flags {sorted(set(flags.tolist()))}")
+        check(d_c <= 1e-8, f"generated C vs the card engine: {d_c:.3e} > 1e-8")
+        empc = L.build_explicit(mpc, prange=prange)
+        lib_e = gcc_lib(L.codegen_c_explicit(empc, f"{tmp}/e"))
+        u_e = np.array([c_control(lib_e, t, nx, nr)[1] for t in th])
+        u_eval, _viol = empc.evaluate_batch(th)
+        d_e = float(np.abs(u_e - u_eval[:, 0].cpu().numpy()).max())
+        log(f"  explicit C ({len(empc.regions)} regions, BST depth {empc.bst_arrays()[5]}) vs "
+            f"evaluate_batch on {u_eval.device}: max |du| {d_e:.3e}")
+        check(u_eval.is_cuda and d_e <= 1e-9, f"explicit C vs evaluate_batch: {d_e:.3e}")
+    th512 = sample_thetas(("invpend", None, None), np.random.default_rng(281), 512)
+    native = NativeBatchSolver(eng.ldp, nu=mpc.model.nu)
+    U_n, _it, st_n = native.solve_batch(th512)
+    t_n = host_ms(lambda: native.solve_batch(th512), 5)
+    sol_n = eng.solve_batch(torch.as_tensor(th512, device=dev))
+    d_n = float(np.abs(U_n - sol_n.U.cpu().numpy()).max())
+    log(f"  native C++ runtime B=512: status 1 {np.mean(st_n == 1):.6f}, max |U - U_card| "
+        f"{d_n:.3e}; {min(t_n):.3f} ms a batch (best of 5, host CPU) = "
+        f"{512 / min(t_n) * 1e3:,.0f} solves/s; the card engine on {card_line()}")
+    check(bool((st_n == 1).all()) and d_n <= 1e-9, f"native runtime vs the card: {d_n:.3e}")
+    log(f"    [28] {time.perf_counter() - t_phase:.1f} s")
+
+
+def export_phase(dev, by_path: dict):
+    """Phase [29]: ``export_compiled`` at B = 1024 for invpend (K1) and the
+    m = 48 problem (K3 through ``bulk_inverse_updates``), ``load_compiled``,
+    and the replay on the card against a direct ``solve_single`` call, bit
+    for bit; the launches of the replays alone go to ``by_path["export"]``."""
+    t_phase = time.perf_counter()
+    B = 1024
+    cases = []
+    for label, mpc, th in (
+            ("invpend", L.mpc_examples("invpend")[0].setup(),
+             sample_thetas(("invpend", None, None), np.random.default_rng(29), B)),
+            ("m=48", largem_mpc(12, None, None), largem_thetas(np.random.default_rng(291), B,
+                                                                12.0))):
+        eng = mpc.engine
+        th_dev = torch.as_tensor(th, device=dev)
+        direct = solve_single(eng.arrays, th_dev, **eng._single_kw)
+        cases.append((label, mpc, th_dev, direct))
+    with tempfile.TemporaryDirectory() as tmp:
+        programs = []
+        for label, mpc, th_dev, direct in cases:
+            meta = L.export_compiled(mpc, f"{tmp}/{label}.pt2", batch=B)
+            programs.append(L.load_compiled(f"{tmp}/{label}.pt2"))
+            log(f"[29] export {label}: {meta}")
+        torch.cuda.synchronize()
+        reset_counts()
+        outs = [fn(th_dev) for fn, (_l, _m, th_dev, _d) in zip(programs, cases)]
+        torch.cuda.synchronize()
+        by_path["export"] = read_counts()
+        for fn, out, (label, mpc, th_dev, direct) in zip(programs, outs, cases):
+            same = all(torch.equal(a, b) for a, b in zip(out, (direct.U, direct.iters,
+                                                               direct.status)))
+            t_rep = host_ms(lambda: fn(th_dev), 5)
+            t_dir = host_ms(lambda: solve_single(mpc.engine.arrays, th_dev,
+                                                 **mpc.engine._single_kw), 5)
+            log(f"  replay {label} B={B} on {out[0].device}: equal to solve_single bit for bit "
+                f"{same}, status 1 {(out[2] == 1).double().mean().item():.6f}; replay "
+                f"{np.median(t_rep):.3f} ms vs direct {np.median(t_dir):.3f} ms (median of 5) "
+                f"on {card_line()}")
+            check(out[0].is_cuda and same, f"export {label}: the replay differs from solve_single")
+    log(f"    export path launches (the replays alone): {by_path['export']}")
+    check(by_path["export"]["bulk"] > 0 and by_path["export"]["iu"] > 0,
+          "export: the replay launched no K1 or no K3")
+    log(f"    [29] {time.perf_counter() - t_phase:.1f} s")
+
+
+def profiling_phase(dev, by_path: dict, k1_run, k3_run):
+    """Phase [30]: ``instrument`` on the cold B = 32768 tier, ``overlap_report``
+    (its launches to ``by_path["overlap"]``), ``mfu_report`` of K1 and K3 from
+    profiling's models at [7]'s and [14]'s launches, and a trace."""
+    t_phase = time.perf_counter()
+    mpc = L.mpc_examples("invpend")[0].setup()
+    eng = mpc.engine
+    th_dev = torch.as_tensor(sample_thetas(("invpend", None, None),
+                                           np.random.default_rng(30), B_COLD), device=dev)
+    stats = L.instrument(eng)
+    for _ in range(4):
+        eng.solve_batch(th_dev)
+    s = stats.summary()
+    log(f"[30] profiling: instrument, cold tier B={B_COLD} x 4: {s['solves_per_s']:,.1f} "
+        f"solves/s, converged {s['converged_frac']:.6f}, mean iters {s['mean_iters']}, p99 "
+        f"batch {1e3 * s['p99_batch_latency_s']:.3f} ms on {card_line()}")
+    check(s["converged_frac"] == 1.0, f"instrument: converged {s['converged_frac']}")
+    reset_counts()
+    rep = profiling.overlap_report(L.mpc_examples("invpend")[0].setup(), B=B_COLD)
+    torch.cuda.synchronize()
+    by_path["overlap"] = read_counts()
+    log(f"  overlap_report B={B_COLD}: K1 alone {1e3 * rep['t_phase1_s']:.4f} ms, K2 alone "
+        f"{1e3 * rep['t_polish_s']:.4f} ms, the pair on two streams "
+        f"{1e3 * rep['t_pair_s']:.4f} ms (sum {1e3 * rep['t_sum_s']:.4f}), fill_frac "
+        f"{rep['fill_frac']:.4f}; launches {by_path['overlap']} on {card_line()}")
+    check(by_path["overlap"]["bulk"] > 0 and by_path["overlap"]["polish"] > 0,
+          "overlap_report launched no K1 or no K2")
+    for label, (ms, B, m, it, fl, by) in (("K1 cold f32 m=5", k1_run), ("K3 cold f32 m=48", k3_run)):
+        r = profiling.mfu_report(B / ms * 1e3, it, fl, bytes_per_lane_iter=by / max(it, 1.0))
+        log(f"  mfu_report {label} B={B}: {r['achieved_flops'] / 1e9:.2f} GFLOP/s, MFU "
+            f"{100 * r['mfu']:.4f}%, HBM {100 * r['hbm_util']:.3f}% (model "
+            f"{r['model_flops_per_solve']:.0f} FLOP a solve at {it:.2f} iterations)")
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(f"{tmp}/tr"):
+            eng.solve_batch(th_dev)
+            torch.cuda.synchronize()
+        size = Path(f"{tmp}/tr/trace.json").stat().st_size
+    log(f"  trace: {size} bytes of Chrome trace")
+    check(size > 0, "trace: empty file")
+    log(f"    [30] {time.perf_counter() - t_phase:.1f} s")
+
+
+def schur_phase(dev):
+    """Phase [31]: the mp-Schur row-sharded solver on a 1 x 1 mesh (NCCL, a
+    world of one) at the JAX bench's shape (``bench.py:545-552``): invpend
+    Np = 255, Nc = 8 with the +-18 box on ks 2..255 (m = 1024), float64,
+    B = 256; the first 8 lanes the NumPy oracle converges on held to 1e-8;
+    the threshold and the hybrid refusal of ``attach_mesh``."""
+    from linearmpc_tpu_torch.parallel import make_mesh
+
+    t_phase = time.perf_counter()
+    mpc, _ = L.mpc_examples("invpend", 255, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, 256))
+    mpc.setup(dtype=torch.float64)
+    eng = mpc.engine
+    mesh = make_mesh(1, 1)
+    eng.attach_mesh(mesh, force=True)
+    rng = np.random.default_rng(31)
+    B = 256
+    th = np.hstack([rng.uniform(-5, 5, (B, 4)), rng.uniform(-5, 5, (B, 2)),
+                    rng.uniform(-2, 2, (B, 1))])
+    th_dev = torch.as_tensor(th, device=dev)
+    sol = eng.solve_batch(th_dev)
+    t_s = host_ms(lambda: eng.solve_batch(th_dev), 2)
+    conv = (sol.status == 1).double().mean().item()
+    U = sol.U.cpu().numpy()
+    checked, err, scanned = 0, 0.0, 0
+    for i in range(B):
+        if checked == 8:
+            break
+        scanned += 1
+        U_r, *_rest, s_r = solve_ldp_numpy(eng.ldp, th[i])
+        if s_r == 1:
+            check(int(sol.status[i]) == 1, f"mp-Schur lane {i}: status {int(sol.status[i])}")
+            err = max(err, float(np.abs(U[i] - U_r).max()))
+            checked += 1
+    log(f"[31] mp-Schur on {mesh.device_type} (mesh {tuple(mesh.shape)}, backend "
+        f"{torch.distributed.get_backend()}), m={eng.ldp.m}, float64, B={B}: "
+        f"{B / min(t_s) * 1e3:,.1f} solves/s (best of 2: {min(t_s):.1f} ms), converged "
+        f"{conv:.6f}, mean walk iterations {sol.iters.double().mean().item():.2f}; the first "
+        f"{checked} oracle-converged lanes (of {scanned} scanned) max |U - U_oracle| {err:.3e} "
+        f"on {card_line()}")
+    check(sol.U.is_cuda and checked == 8 and err <= 1e-8, f"mp-Schur vs oracle: {err:.3e}")
+    small = largem_mpc(12, None, torch.float64).engine
+    small.attach_mesh(mesh)
+    check(small._mp_solver is None, "attach_mesh routed an m=48 problem below the threshold")
+    hybrid = L.mpc_examples("satellite")[0].setup().engine
+    try:
+        hybrid.attach_mesh(mesh)
+        fail("attach_mesh took a hybrid engine")
+    except ValueError as e:
+        log(f"  below the threshold (m={small.ldp.m}) no mp solver; hybrid refused: {e}")
+    torch.distributed.destroy_process_group()
+    log(f"    [31] {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one GPU",
@@ -1904,7 +2083,8 @@ def main() -> int:
     sl04, Rw04 = eng_c._ciu_cold_carry(B_LARGE)
     ms_k4 = cuda_ms(lambda: ciu.phase1_ciu(*args4, sl04, Rw04, **kw4), 10)
     ms_k4p = cuda_ms(lambda: ciu.phase1_ciu_plain(*args4, sl04, Rw04, **kw4), 1, warmup=1)
-    k3_bound = gi_bound(args3 + (R03,), iu.phase1_iu(*args3, R03, **kw3))
+    out_k3 = iu.phase1_iu(*args3, R03, **kw3)
+    k3_bound = gi_bound(args3 + (R03,), out_k3)
     k4_bound = gi_bound(args4 + (sl04, Rw04), ciu.phase1_ciu(*args4, sl04, Rw04, **kw4))
     dev_k3 = kernel_device_ms(lambda: [iu.phase1_iu(*args3, R03, **kw3) for _ in range(5)],
                               "iu_kernel")
@@ -1978,6 +2158,19 @@ def main() -> int:
     lp_oracle_phase(dev)
     explicit_phase(dev)
     certification_phase(dev)
+    # the deployment and tooling paths, the mp-Schur solver
+    codegen_phase(dev)
+    export_phase(dev, by_path)
+    it_k1 = out_k1[3].double().mean().item()
+    w_k3 = out_k3[1].sum(1).double().mean().item()
+    it_k3 = out_k3[3].double().mean().item()
+    profiling_phase(
+        dev, by_path,
+        (ms_k1, B_COLD, 5, it_k1, profiling.phase1_flops_per_lane_iter(5),
+         profiling.phase1_bytes_per_lane(5)),
+        (ms_k3, B_LARGE, m_iu, it_k3, profiling.iu_flops_per_lane_iter(m_iu, w_k3),
+         profiling.iu_bytes_per_lane(m_iu)))
+    schur_phase(dev)
 
     # the counts of each kernel on each path's run
     per_path = lambda k: {p: by_path[p][k] for p in PATHS}

@@ -16,10 +16,18 @@ certification (``certify.py``) and invariant sets (``invariant.py``), on
 the batched float64 interior-point LP oracle (``ops/lp_ipm.py``); LP
 feasibility certificates (``ops/lp_cert.py``), state-space models
 (``models/statespace.py``) and checkpoints (``checkpoint.py``).
+Deployment and tooling: embedded C for the controller and the explicit
+controller, and the batched ``solve_single`` saved with ``torch.export``
+as one custom operator that runs the kernels (``codegen.py``); the native
+C++ CPU runtime (``native_runtime.py``); solve counters, the kernels'
+operation and byte models, stream overlap and profiler traces
+(``profiling.py``); figures (``plotting.py``, matplotlib imported only when
+a figure is drawn). Multi-device: (dp, mp) device meshes, the dp-sharded
+batched solve, multi-process set-up and the mp-Schur row-sharded solver on
+``torch.distributed`` (``parallel/``), behind ``SolverEngine.attach_mesh``.
 
 The package imports torch, NumPy and SciPy only, never ``jax`` or
-``linearmpc_tpu``. Modules of the JAX package not ported yet (codegen,
-native_runtime, plotting, profiling, parallel) are listed in ROADMAP.md.
+``linearmpc_tpu``; it does all that the JAX package does.
 """
 
 from .condense import (
@@ -55,6 +63,9 @@ from .certify import CertificationResult, certify
 from .invariant import eliminate, invariant_set, minrep
 from .models.statespace import model_from_statespace
 from .checkpoint import load_explicit, load_problem, save_explicit, save_problem
+from .codegen import codegen_c, codegen_c_explicit, export_compiled, load_compiled
+from .profiling import SolveStats, instrument
+from . import parallel
 
 __version__ = "0.1.0"
 
@@ -72,6 +83,8 @@ __all__ = [
     "ExplicitMPC", "build_explicit", "make_singlesided", "CertificationResult", "certify",
     "eliminate", "invariant_set", "minrep", "model_from_statespace",
     "load_explicit", "load_problem", "save_explicit", "save_problem",
+    "codegen_c", "codegen_c_explicit", "export_compiled", "load_compiled",
+    "SolveStats", "instrument", "parallel",
 ]
 
 

@@ -50,6 +50,10 @@ Two kinds of problem take other paths, in this order (``engine.py:
   (``bnb.solve_bnb_dfs``), whose incumbents a float32 engine re-solves in
   float64.
 
+A (dp, mp) device mesh attached with ``attach_mesh`` sends batched solves of
+a problem with more than 512 rows (or any, when forced) to the row-sharded
+conjugate-gradient solver of ``parallel/schur.py`` (``engine.py:1402-1423``).
+
 Single solves (``solve``) go through ``solve_single`` at B = 1 as the JAX
 engine's do, so a float32 single solve reports -3 for an infeasible point.
 Each tier is one piece of code: on CUDA tensors it launches the kernels,
@@ -207,6 +211,7 @@ class SolverEngine:
         soft_weight: float = 1e6,
     ):
         self.ldp = ldp
+        self._mp_solver = None  # the mp-Schur solver, once attach_mesh routes to it
         self.device = resolve_device(device)
         self.dtype = default_dtype(self.device) if dtype is None else dtype
         m = ldp.m
@@ -783,6 +788,30 @@ class SolverEngine:
         Rw = torch.where(ovf[:, None, None], eye_s, Rw)
         return U.float(), lam32, act, side, iters, status, (slots, Rw)
 
+    # -- model parallelism: batched solves through the mp-Schur row-sharded
+    # solver (parallel/schur.py) once a mesh is attached and the row
+    # dimension is past the single-device paths' reach (engine.py:1402-1423)
+    def attach_mesh(self, mesh, *, mp_threshold: int = 512, force: bool = False, **schur_kw):
+        """Configure a (dp, mp) ``DeviceMesh``. Batched solves dispatch to the
+        row-sharded CG solver when ``ldp.m > mp_threshold`` (or ``force``);
+        smaller problems keep the single-device paths. Raises for a hybrid
+        engine: the mp-Schur solver has no branch-and-bound. Returns self."""
+        self._mp_solver = None
+        if mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for an engine on {self.device}")
+        if self.has_binaries:
+            raise ValueError(
+                "attach_mesh does not support hybrid (binary-constrained) "
+                "problems: the mp-Schur solver has no branch-and-bound")
+        if force or self.ldp.m > mp_threshold:
+            from ..parallel.schur import make_mp_batch_solver
+
+            self._mp_solver = make_mp_batch_solver(
+                self.ldp, mesh, max_iter=min(self.iter_limit, 2 * self.ldp.m + 32),
+                primal_tol=min(self.primal_tol, 1e-6), sign_tol=max(self.sign_tol, 1e-9),
+                **schur_kw)
+        return self
+
     # -- entry points -------------------------------------------------------
     @full_f32()
     def solve_batch(self, thetas, warm=None) -> Solution:
@@ -793,6 +822,8 @@ class SolverEngine:
         thetas = torch.as_tensor(thetas, device=self.device).to(in_dtype)
         if self.lex is not None:
             return self.lex.solve_batch(thetas)
+        if self._mp_solver is not None:
+            return self._mp_solver(thetas)
         if self.path == "hybrid":
             return self._hybrid_batch(thetas)
         if self.path == "small":

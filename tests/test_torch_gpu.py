@@ -833,3 +833,95 @@ def test_evaluate_batch_on_card_matches_host_evaluate():
     assert len(inside) >= 3500
     for i in inside[:256]:
         assert np.max(np.abs(u[i] - e_d.evaluate(th[i]))) <= 1e-9
+
+
+# -- deployment, tooling and the mp-Schur solver on the card --------------------
+
+
+def test_export_replay_on_card_equals_direct_and_launches_kernels(tmp_path):
+    """``export_compiled`` / ``load_compiled`` on the card at B = 256: the
+    replay equals a direct ``solve_single`` call bit for bit and launches
+    K1 (invpend) and K3 (the m = 48 box problem)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from linearmpc_tpu_torch.ops.dual_active_set import solve_single
+
+    box, _ = tmpc.mpc_examples("invpend", 50, 8)
+    box.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, 12))
+    rng = np.random.default_rng(29)
+    for mpc, counter in ((tmpc.mpc_examples("invpend")[0], bulk), (box, iu)):
+        mpc.setup()
+        eng = mpc.engine
+        th = torch.as_tensor(np.hstack([rng.uniform(-12, 12, (256, 6)),
+                                        rng.uniform(-2, 2, (256, 1))]), device="cuda")
+        tmpc.export_compiled(mpc, str(tmp_path / "p.pt2"), batch=256)
+        fn = tmpc.load_compiled(str(tmp_path / "p.pt2"))
+        before = counter.LAUNCHES
+        out = fn(th)
+        torch.cuda.synchronize()
+        assert counter.LAUNCHES > before
+        direct = solve_single(eng.arrays, th, **eng._single_kw)
+        for a, b in zip(out, (direct.U, direct.iters, direct.status)):
+            assert a.is_cuda and torch.equal(a, b)
+
+
+def test_codegen_c_agrees_with_card_engine(tmp_path):
+    """The generated C for invpend (gcc) against the engine on the card on
+    64 states: every flag 1, u within 1e-8."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if shutil.which("gcc") is None:
+        pytest.skip("needs gcc")
+    mpc, _ = tmpc.mpc_examples("invpend")
+    mpc.setup()
+    cpath = tmpc.codegen_c(mpc, str(tmp_path))
+    so = str(tmp_path / "c.so")
+    subprocess.run(["gcc", "-O2", "-fPIC", "-shared", "-o", so, cpath, "-lm"], check=True)
+    lib = ctypes.CDLL(so)
+    ct = ctypes.c_double
+    rng = np.random.default_rng(28)
+    th = np.hstack([rng.uniform(-15, 15, (64, 6)), rng.uniform(-2, 2, (64, 1))])
+    sol = mpc.engine.solve_batch(torch.as_tensor(th, device="cuda"))
+    for i, t in enumerate(th):
+        lib.mpc_set_uprev((ct * 1)(t[6]))
+        u = (ct * 1)()
+        assert lib.mpc_compute_control(u, (ct * 4)(*t[:4]), (ct * 2)(*t[4:6]), None) == 1
+        assert abs(u[0] - float(sol.U[i, 0])) <= 1e-8
+
+
+def test_mp_schur_on_card_world_of_one():
+    """The mp-Schur solver on a 1 x 1 mesh (NCCL, a world of one) for the
+    m = 48 box problem in float64: the oracle's converged lanes within
+    1e-8, through ``attach_mesh(force=True)``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
+    from linearmpc_tpu_torch.parallel import make_mesh
+
+    mpc, _ = tmpc.mpc_examples("invpend", 30, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, 12))
+    eng = mpc.setup(dtype=torch.float64).engine
+    mesh = make_mesh(1, 1)
+    try:
+        assert mesh.device_type == "cuda" and dist.get_backend() == "nccl"
+        eng.attach_mesh(mesh, force=True)
+        rng = np.random.default_rng(0)
+        th = np.hstack([rng.uniform(-12, 12, (32, 6)), rng.uniform(-2, 2, (32, 1))])
+        sol = eng.solve_batch(torch.as_tensor(th, device="cuda"))
+        assert sol.U.is_cuda
+        n = 0
+        for i in range(32):
+            U_r, *_rest, s = solve_ldp_numpy(eng.ldp, th[i])
+            if s == 1:
+                assert int(sol.status[i]) == 1
+                assert np.max(np.abs(sol.U[i].cpu().numpy() - U_r)) <= 1e-8
+                n += 1
+        assert n >= 8
+    finally:
+        dist.destroy_process_group()

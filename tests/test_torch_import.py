@@ -12,6 +12,7 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def _run(code_or_args, cwd=ROOT):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["OMP_NUM_THREADS"] = "1"  # the suite's workers share few cores
     args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
     return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
@@ -158,3 +159,62 @@ def test_offline_modules_leave_jax_out():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert abs(float(out.stdout.split()[-1]) - 1.7612519326) < 1e-6
+
+
+def test_tooling_modules_leave_jax_and_matplotlib_out():
+    """The deployment, tooling and multi-device modules imported (codegen,
+    native_runtime, profiling, plotting, parallel) and the package's new
+    names used, without pulling in JAX, the JAX package or matplotlib (the
+    machine with the card has none; plotting imports it only to draw)."""
+    code = (
+        "import sys, tempfile\n"
+        "import linearmpc_tpu_torch as L\n"
+        "assert 'matplotlib' not in sys.modules, 'the package imported matplotlib'\n"
+        "from linearmpc_tpu_torch import codegen, native_runtime, plotting, profiling\n"
+        "from linearmpc_tpu_torch.parallel import distributed, mesh, schur\n"
+        "from linearmpc_tpu_torch.ops.engine import SolverEngine\n"
+        "assert callable(SolverEngine.attach_mesh)\n"
+        "for name in ('codegen_c', 'codegen_c_explicit', 'export_compiled', 'load_compiled',\n"
+        "             'SolveStats', 'instrument', 'parallel'):\n"
+        "    assert name in L.__all__ and hasattr(L, name), name\n"
+        "mpc, _ = L.mpc_examples('invpend')\n"
+        "mpc.setup(device='cpu')\n"
+        "stats = L.instrument(mpc.engine)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    L.codegen_c(mpc, d)\n"
+        "    meta = L.export_compiled(mpc, d + '/p.pt2', batch=4)\n"
+        "print(meta['m'])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'linearmpc_tpu', 'matplotlib'))\n"
+        "assert not bad, bad\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "5"
+
+
+def test_tooling_without_cuda_needs_a_device():
+    """No fallback: on a machine without CUDA the default-device paths of
+    the new modules raise as ``setup()`` does (export, the mesh, the
+    multi-process set-up)."""
+    code = (
+        "import torch\n"
+        "assert not torch.cuda.is_available()\n"
+        "import linearmpc_tpu_torch as L\n"
+        "from linearmpc_tpu_torch.parallel import distributed, make_mesh\n"
+        "def raises(fn):\n"
+        "    try:\n"
+        "        fn()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'device=\"cpu\"' in str(e), e\n"
+        "        return True\n"
+        "    return False\n"
+        "mpc, _ = L.mpc_examples('invpend')\n"
+        "assert raises(lambda: L.export_compiled(mpc, '/nonexistent/p.pt2'))\n"
+        "assert raises(lambda: make_mesh(1, 1))\n"
+        "assert raises(lambda: distributed.initialize('localhost:1', 2, 0))\n"
+        "print('ok')\n"
+    )
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
