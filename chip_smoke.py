@@ -5,12 +5,13 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 chip_smoke.py
 
-It builds the four hand-written kernels (K1 ``csrc/bulk.cu``, K2
-``csrc/polish.cu``, K3 ``csrc/iu.cu``, K4 ``csrc/ciu.cu``) from the
-sources, one nvcc each in parallel, holds each against its plain torch
-version on the card, and drives the port's three solve paths through the
-entry points a user calls, with the launch counts set to 0 just before
-each path and read just after:
+It builds the hand-written kernels (K1 ``csrc/bulk.cu``, K2
+``csrc/polish.cu``, K3 ``csrc/iu.cu`` and its search entry
+``csrc/inc_search.cu``, K4 ``csrc/ciu.cu``) from the sources, one nvcc
+each in parallel, holds each against its plain torch version on the card,
+and drives the port's three solve paths through the entry points a user
+calls, with the launch counts set to 0 just before each path and read just
+after:
 
 * small m (invpend, m=5): the golden single solve (also through setup()
   with no device, which must land on the card), the cold B=32768 batch of
@@ -33,15 +34,20 @@ prioritized MPC, each with the counts set to 0 just before its run:
 
 * hybrid (the satellite at its reference default, m = 60, 40 binary rows,
   B = 512, through setup() with no device): the incremental node-frontier
-  branch-and-bound on K3's resumable entry, held against the CPU float64
-  frontier, with its rounds, syncs, solves/s and single-solve latency
-  [18]; the closed-loop satellite on the card [19];
+  branch-and-bound in one launch of K3's search entry (``csrc/
+  inc_search.cu``), held against the CPU float64 frontier and bit for bit
+  against its plain version, the same search round by round on the plain
+  step (``step_iu_plain``) with the torch management, and against those
+  rounds on K3's resumable step, also with the node limit starved at
+  B = 64 (status 2); its syncs, solves/s, single-solve
+  latency against Ts = 100 ms and the entry's times and bound [18]; the
+  closed-loop satellite on the card [19];
 * the lexicographic hierarchy (the two-level problem of the JAX bench,
   m = 7, B = 8192): each level on K1's float64 instantiation, held
   against the CPU float64 ``LexSolver`` [20];
 
-then replays the hybrid path's K3 step launches (first, mid-search, last
-round) against the plain step [21]. Then the paths that run no kernel of
+then replays the K3 step launches of [18]'s round-by-round run (first,
+mid-search, last round) against the plain step [21]. Then the paths that run no kernel of
 their own or open new routes, again each counted:
 
 * float32 hybrid at m >= 67 (``invpend_contact`` Np = 4, m = 88, B = 16):
@@ -121,7 +127,8 @@ from linearmpc_tpu_torch.ops.dual_active_set import solve_single
 from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
 # the bound of a kernel (its bytes at HBM3's rate, its operations at the
 # card's highest rate for their type): one definition with the port's models
-from linearmpc_tpu_torch.profiling import bound, gi_bound, k1_bound, k2_bound, nbytes, step_bound
+from linearmpc_tpu_torch.profiling import (bound, gi_bound, k1_bound, k2_bound, nbytes,
+                                           search_bound, step_bound)
 
 GOLDEN_U = 1.7612519326
 B_COLD = 32768              # cold stream batch (bench.py:90)
@@ -135,6 +142,9 @@ B_ROLL_IU, N_ROLL_IU = 4096, 500   # IU rollout (bench.py:364)
 B_ROLL_C, N_ROLL_C = 2048, 300     # compact rollout (bench.py:495)
 LANE_CASE = Path(__file__).resolve().parent / "tests" / "data" / "compact_lane1929.npz"
 B_HYB, HYB_REF = 512, 32  # hybrid satellite batch (bench.py:615), lanes vs CPU f64
+# the hybrid search with its node limit starved (the full search takes 5-187
+# nodes a lane): the first 64 lanes of [18]'s batch
+B_STARVED, HYB_STARVED = 64, 24
 B_LEX, LEX_REF = 8192, 256  # lexicographic batch (bench.py:587), lanes vs CPU f64
 # the contact problem at m = 88 (tests/test_hybrid.py:370-376), lanes vs CPU
 # f64; the JAX bench's contact shape at m = 142 (bench.py:755-760), its batch
@@ -143,7 +153,7 @@ B_CONTACT, CONTACT_REF, B_BENCH_CONTACT = 16, 4, 4
 B_LP = 1024                 # LP oracle lanes (tests/test_lp_oracle.py's generator)
 B_EVAL = 32768              # explicit point-location batch
 CERT_SAMPLE = 8             # every 8th IPM call of [27] replayed under the profiler
-KERNELS = ("bulk", "polish", "iu", "ciu")
+KERNELS = ("bulk", "polish", "iu", "ciu", "inc_search")
 COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu)  # each module's LAUNCHES
 PATHS = ("small", "iu", "compact", "hybrid", "lex", "contact", "single", "exact", "nonsym",
          "export", "overlap")
@@ -268,6 +278,7 @@ def reset_counts():
     for mod in COUNTED.values():
         mod.LAUNCHES = 0
     iu.STEP_LAUNCHES = 0
+    iu.SEARCH_LAUNCHES = 0
 
 
 def read_counts() -> dict:
@@ -756,6 +767,46 @@ def compare_step(label, args, kw):
     return st_k, err
 
 
+def compare_search(label, fr, res_k, res_p, mpc):
+    """K3's search entry (``res_k``) against the rounds (``res_p``: its
+    plain version, or the rounds on K3's step entry), on the same lanes:
+    every output of every lane equal (the management sums in the entry's
+    order); after ``finish`` statuses equal,
+    fval within 1e-6 (1 + |f|) and every binary on a bound (1e-5). Prints
+    the lanes whose nodes, iterations or final working set differ and
+    those that took a ray retry or hit the node limit; returns the entry's
+    finished solution."""
+    torch.cuda.synchronize()
+    diff = torch.zeros(res_k.nodes.shape[0], dtype=torch.bool, device=res_k.nodes.device)
+    for a, b in zip(res_k, res_p):
+        d = a != b
+        if a.dtype.is_floating_point:
+            d &= ~(torch.isnan(a) & torch.isnan(b))
+        diff |= d if d.dim() == 1 else d.any(1)
+    n_trail = int(((res_k.nodes != res_p.nodes) | (res_k.iters != res_p.iters)).sum())
+    ws = (res_k.inc_active != res_p.inc_active) | (res_k.inc_active & (res_k.inc_side
+                                                                       != res_p.inc_side))
+    sol_k, sol_p = fr.finish(res_k), fr.finish(res_p)
+    st = sol_k.status.cpu().numpy()
+    found = (st == 1) | (st == 2)
+    f_k, f_p = sol_k.fval.double().cpu().numpy(), sol_p.fval.double().cpu().numpy()
+    rel = float((np.abs(f_k - f_p) / (1.0 + np.abs(f_p)))[found].max()) if found.any() else 0.0
+    off = binary_offsets(mpc, sol_k.U.double().cpu().numpy(), found)
+    same_status = torch.equal(sol_k.status, sol_p.status)
+    log(f"  search entry vs {label}: lanes with any output different "
+        f"{int(diff.sum())} (0 required), with other nodes or iterations {n_trail}, with "
+        f"another final working set {int(ws.any(1).sum())}; statuses equal {same_status}, "
+        f"max rel |dfval| {rel:.3e}, binaries off their bound by {off:.3e} at most; lanes with "
+        f"a ray retry {int((res_k.retries > 0).sum())}, at the node limit "
+        f"{int((res_k.nodes >= fr.node_limit).sum())}")
+    check(int(diff.sum()) == 0, f"search entry {label}: {int(diff.sum())} lanes differ from "
+          f"the rounds")
+    check(same_status, f"search entry {label}: statuses differ from the rounds")
+    check(rel <= 1e-6, f"search entry {label}: fval vs the rounds {rel:.3e} > 1e-6")
+    check(off <= 1e-5, f"search entry {label}: a binary control {off:.3e} off its bound")
+    return sol_k
+
+
 def lex_mpc(device, dtype=None):
     """The two-level lexicographic problem of bench.py:578-585 (m = 7):
     x >= 1 at priority 0 against x <= -1 at priority 1."""
@@ -776,7 +827,8 @@ def hybrid_lex_phases(dev, by_path: dict) -> tuple[dict, float, dict]:
     lexicographic levels' launches."""
     # [18] hybrid MPC: the satellite at its reference default (Np = Nc = 20,
     # m = 60, 40 binary rows), B = 512, theta in +-1 (bench.py:605-643),
-    # through setup() with no device -- K3's launches counted here
+    # through setup() with no device -- K3's search entry launched here, once
+    # a batch
     mpc_h, _ = L.mpc_examples("satellite")
     mpc_h.setup()
     eng_h = mpc_h.engine
@@ -785,16 +837,15 @@ def hybrid_lex_phases(dev, by_path: dict) -> tuple[dict, float, dict]:
           f"{getattr(eng_h, 'bnb_mode', None)}")
     n_bin = int(eng_h.ldp.is_binary.sum())
     log(f"[18] hybrid satellite m={eng_h.ldp.m}, {n_bin} binary rows, B={B_HYB}: the "
-        f"incremental frontier, {eng_h.stack_cap} stack slots, node cap {eng_h.node_cap}")
+        f"incremental frontier in one launch of K3's search entry, {eng_h.stack_cap} stack "
+        f"slots, node cap {eng_h.node_cap}")
     th_h = np.random.default_rng(18).uniform(-1.0, 1.0, (B_HYB, eng_h.ldp.n_theta))
     th_h_dev = torch.as_tensor(th_h, device=dev)
     reset_counts()
-    hyb = []
-    step_calls = record_calls(iu, "step_iu", lambda: hyb.append(eng_h.solve_batch(th_h_dev)))
+    sol_h = eng_h.solve_batch(th_h_dev)
     torch.cuda.synchronize()
     by_path["hybrid"] = read_counts()
-    n_step = iu.STEP_LAUNCHES
-    sol_h = hyb[0]
+    n_search, n_step = iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES
     check(sol_h.U.is_cuda, "hybrid: the solution is not on the card")
     st_h = sol_h.status.cpu().numpy()
     U_h = sol_h.U.double().cpu().numpy()
@@ -806,48 +857,123 @@ def hybrid_lex_phases(dev, by_path: dict) -> tuple[dict, float, dict]:
     rel_f = float((np.abs(f_h - f_ref) / (1.0 + np.abs(f_ref)))[ok_ref].max()) if ok_ref.any() else 0.0
     same_ok = bool(np.array_equal(st_h[:HYB_REF] == 1, ok_ref))
     log(f"  status 1 {np.mean(st_h == 1):.6f}, 2 {np.mean(st_h == 2):.6f}, -2 "
-        f"{np.mean(st_h == -2):.6f}, -1 {int(np.sum(st_h == -1))} lanes; K3 step launches "
-        f"{n_step} (K3 in all {by_path['hybrid']['iu']}); binaries off their bound by "
-        f"{off:.3e} at most; first {HYB_REF} lanes vs the CPU float64 frontier: status 1 on "
-        f"the same lanes {same_ok}, max rel |dfval| {rel_f:.3e}")
-    check(n_step > 0, "hybrid: K3's step entry was never launched")
+        f"{np.mean(st_h == -2):.6f}, -1 {int(np.sum(st_h == -1))} lanes; K3 search entry "
+        f"launches {n_search}, step launches {n_step} (K3 in all {by_path['hybrid']['iu']}); "
+        f"binaries off their bound by {off:.3e} at most; first {HYB_REF} lanes vs the CPU "
+        f"float64 frontier: status 1 on the same lanes {same_ok}, max rel |dfval| {rel_f:.3e}")
+    check(n_search == 1 and n_step == 0,
+          f"hybrid: {n_search} search entry launches and {n_step} step launches (1 and 0)")
     check(bool(np.all(st_h != -1)), "hybrid: a lane with status -1")
     check(bool(np.all(np.isfinite(U_h[found]))), "hybrid: non-finite controls")
     check(off <= 1e-5, f"hybrid: a binary control {off:.3e} off its bound")
     check(same_ok, "hybrid: status 1 on other lanes than the CPU float64 frontier")
     check(rel_f <= 1e-6, f"hybrid fval vs CPU f64: {rel_f:.3e} > 1e-6")
-    plan = iu.last_plan()
-    log(f"  K3 step launch plan at m={eng_h.ldp.m}, B={B_HYB}: {plan}")
-    check(plan["team"] == 32, f"K3 step at m=60 took the {plan['team']}-thread team")
-    # rounds, nodes and the syncs of one round, from the frontier run round by round
+    plan = iu.last_plan("inc_search")
+    log(f"  search entry launch plan at m={eng_h.ldp.m}, B={B_HYB}: {plan}")
+    check(plan["team"] == 32, f"search entry at m=60 took the {plan['team']}-thread team")
+
+    # the entry against its plain version, the search round by round on the
+    # plain step (``step_iu_plain``) and the torch management, which sums in
+    # the entry's order; its host-clock time is the entry's plain time
     fr = eng_h.inc_frontier()
+    res_k = fr.search(th_h_dev)
+    plain_ms = {}
+
+    def plain_run(label, f_e, th_e):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = f_e.search_plain(th_e)
+        torch.cuda.synchronize()
+        plain_ms[label] = 1e3 * (time.perf_counter() - t0)
+        return res
+
+    compare_search(f"its plain version, B={B_HYB}", fr, res_k,
+                   plain_run(f"B={B_HYB}", fr, th_h_dev), mpc_h)
+
+    # and against the same rounds on K3's step entry, which shares the
+    # entry's GI loop, with the syncs of one round; the step launches
+    # recorded for [21]
     held = [fr.init(th_h_dev), True]
-    n_sync_round = None
+    sync_round = None
 
     def one_round():  # a round and the loop test that follows it
         held[0] = fr.round(held[0])
         held[1] = fr.running(held[0])
 
-    while held[1]:
-        if fr.rounds == 10:
-            n_sync_round = count_syncs(one_round)
-        else:
-            one_round()
-    s = held[0]
-    sol_r = fr.finish(s)
-    check(torch.equal(sol_r.status, sol_h.status), "hybrid: round-by-round run differs")
-    hyb_ms = host_ms(lambda: eng_h.solve_batch(th_h_dev), 3)
-    lat_ms = host_ms(lambda: eng_h.solve(th_h[0]), 5)
+    def all_rounds():
+        nonlocal sync_round
+        while held[1]:
+            if fr.rounds == 10:
+                sync_round = sync_sites(one_round)
+            else:
+                one_round()
+
+    step_calls = record_calls(iu, "step_iu", all_rounds)
+    res_p = iu.SearchResult(*(getattr(held[0], f) for f in iu.SearchResult._fields))
+    n_rounds = fr.rounds
+    compare_search(f"the rounds on K3's step, B={B_HYB}", fr, res_k, res_p, mpc_h)
+    n_sync_search = count_syncs(lambda: fr.search(th_h_dev))
+    log(f"  synchronizing calls: {n_sync_search} in the search entry's call (0 required), "
+        f"{len(sync_round)} in one round and its loop test of the round-by-round run "
+        f"({', '.join(sync_round)}), which made "
+        f"{len(step_calls)} K3 step launches in {n_rounds} rounds")
+    check(n_sync_search == 0, f"hybrid: the search entry's call made {n_sync_search} syncs")
+
+    # the node limit starved at B = 64: status 2, held to the budget rule
+    # against the unstarved search and bit for bit against its plain version
+    fr_s = eng_h.inc_frontier()
+    fr_s.node_limit = HYB_STARVED
+    th_s = th_h_dev[:B_STARVED]
+    starved = f"B={B_STARVED}, node limit {HYB_STARVED}"
+    res_ks = fr_s.search(th_s)
+    sol_ks = compare_search(f"its plain version, {starved}", fr_s, res_ks,
+                            plain_run(starved, fr_s, th_s), mpc_h)
+    st_s = sol_ks.status.cpu().numpy()
+    f_s = sol_ks.fval.double().cpu().numpy()
+    f_opt = sol_h.fval[:B_STARVED].double().cpu().numpy()
+    tol = 1e-6 * (1.0 + np.abs(f_opt))
+    n_one = int(np.sum(st_s == 1))
+    bad_one = int(np.sum((np.abs(f_s - f_opt) > tol)[st_s == 1]))
+    bad_two = int(np.sum((f_s < f_opt - tol)[st_s == 2]))
+    log(f"  starved: status 1 on {n_one}, 2 on {int(np.sum(st_s == 2))} of {B_STARVED} lanes; "
+        f"status-1 lanes off the unstarved optimum by more than 1e-6 (1 + |f|): {bad_one}; "
+        f"status-2 lanes below it: {bad_two}")
+    check(bool(np.all((st_s == 1) | (st_s == 2))), "starved hybrid: a lane not at status 1 or 2")
+    check(bool(np.any(st_s == 2)), "starved hybrid: no lane at status 2")
+    check(bad_one == 0 and bad_two == 0, "starved hybrid: the budget rule does not hold")
+
+    # timings: the batch and single solves through the engine, the entry's
+    # launch at B = 512 and B = 1 (CUDA events, the profiler's device time),
+    # its plain version on the host clock (the runs above; B = 1 here), the
+    # bound
+    hyb_ms = host_ms(lambda: eng_h.solve_batch(th_h_dev), 5)
+    lat_ms = [host_ms(lambda i=i: eng_h.solve(th_h[i]), 1)[0] for i in range(10)]
     prof_h = device_profile(f"hybrid batch of {B_HYB}",
                             lambda: eng_h.solve_batch(th_h_dev), 1, min(hyb_ms))
-    log(f"  timings on {card_line()}: batch {', '.join(f'{t:.1f}' for t in hyb_ms)} ms = "
+    card = card_line()
+    log(f"  timings on {card}: batch {', '.join(f'{t:.1f}' for t in hyb_ms)} ms = "
         f"{B_HYB / min(hyb_ms) * 1e3:,.0f} B&B solves/s (best); single solve at B=1 "
-        f"{', '.join(f'{t:.1f}' for t in lat_ms)} ms; solved {np.mean(st_h == 1):.6f}, mean "
-        f"iterations {sol_h.iters.double().mean().item():.1f}, mean nodes "
-        f"{s.nodes.double().mean().item():.1f}, {fr.rounds} rounds a batch, "
-        f"{n_step / fr.rounds:.2f} K3 step launches a round, {n_sync_round} synchronizing "
-        f"calls in one round and its loop test")
+        f"{', '.join(f'{t:.1f}' for t in lat_ms)} ms (median {np.median(lat_ms):.1f} ms; "
+        f"Ts = 100 ms); mean iterations {res_k.iters.double().mean().item():.1f}, mean nodes "
+        f"{res_k.nodes.double().mean().item():.1f}, slowest lane {int(res_k.rounds.max())} "
+        f"rounds ({n_rounds} rounds round by round)")
     log(prof_h)
+    entry_rows = {}
+    fr1 = eng_h.inc_frontier()
+    plain_run("B=1", fr1, th_h_dev[:1])
+    for label, f_e, th_e in ((f"B={B_HYB}", fr, th_h_dev), ("B=1", fr1, th_h_dev[:1]),
+                             (starved, fr_s, th_s)):
+        res_e = f_e.search(th_e)
+        ms = cuda_ms(lambda: f_e.search(th_e), 5)
+        dev_ms = kernel_device_ms(lambda: f_e.search(th_e), "search_kernel")
+        ms_p = plain_ms[label]
+        b_ms, b_by = search_bound(f_e, res_e)
+        log(f"  search entry {label}: call {ms:.4f} ms, device {fmt_ms(dev_ms)}, plain (the "
+            f"rounds on the plain step) {ms_p:.1f} ms, bound {b_ms:.5f} ms ({b_by}); slowest lane "
+            f"{int(res_e.iters.max())} iterations, {int(res_e.rounds.max())} rounds")
+        entry_rows[f"search entry m={eng_h.ldp.m} {label}"] = dict(
+            ms=ms, device_ms=dev_ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
+            launches_per_batch=1)
 
     # [19] the closed-loop satellite (tests/test_hybrid.py:11-30) on the card
     N_CL = 20
@@ -909,11 +1035,13 @@ def hybrid_lex_phases(dev, by_path: dict) -> tuple[dict, float, dict]:
     check(by_path["lex"]["bulk"] == len(eng_x.lex.levels),
           f"lex: {by_path['lex']['bulk']} K1 launches for {len(eng_x.lex.levels)} levels")
 
-    # [21] the K3 step launches of [18], replayed alone: the first round, a
-    # mid-search round with pending rows and branched eq rows, the last
-    log("[21] K3 step launches of the hybrid path: vs step_iu_plain, call / device / plain "
-        "time, bound")
+    # [21] the K3 step launches of [18]'s round-by-round run, replayed
+    # alone: the first round, a mid-search round with pending rows and
+    # branched eq rows, the last
+    log("[21] K3 step launches of the hybrid path round by round: vs step_iu_plain, call / "
+        "device / plain time, bound")
     n_eq = int(eng_h.ldp.is_eq.sum())
+    n_step = len(step_calls)
     mid = next((i for i, (a, _k) in enumerate(step_calls)
                 if int((a[6].pend >= 0).sum()) > 0 and int(a[4].sum(1).max()) > n_eq), None)
     check(mid is not None, "hybrid: no step launch entered with pending rows and branched eq")
@@ -932,7 +1060,7 @@ def hybrid_lex_phases(dev, by_path: dict) -> tuple[dict, float, dict]:
         step_rows[f"step K=8 m={eng_h.ldp.m} B={B_HYB}, {label}"] = dict(
             ms=ms, device_ms=dev_ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by,
             launches_per_batch=n_step)
-    return step_rows, k3_step_err, lex_rows
+    return {**entry_rows, **step_rows}, k3_step_err, lex_rows
 
 
 def contact_mpc(Np: int, device=None, dtype=None):

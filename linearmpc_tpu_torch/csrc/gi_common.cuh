@@ -1,7 +1,8 @@
-// The Goldfarb-Idnani lane loop shared by the kernels K3 (iu.cu) and K4
-// (ciu.cu), built for Hopper: a team of NT threads runs one lane. NT is one
-// warp wherever the lane's inverse fits in shared memory and s <= 64, so a
-// block holds several lanes, every barrier is a __syncwarp and a lane that
+// The Goldfarb-Idnani lane loop shared by the kernels K3 (iu.cu), K4
+// (ciu.cu) and K3's branch-and-bound search entry (inc_search.cu), built
+// for Hopper: a team of NT threads runs one lane. NT is one warp wherever
+// the lane's inverse fits in shared memory and s <= 64, so a block holds
+// several lanes, every barrier is a __syncwarp and a lane that
 // finishes takes the next one from a work counter without waiting for the
 // rest of its block. Above that (the f64 guard ladder at s = 96-192, K3 at
 // m = 160 with R in global memory) the same loop runs with a 128-thread
@@ -375,6 +376,9 @@ struct Args {
   const uint8_t* infeas0;
   int32_t* pend;
   uint8_t* pside;
+  // shared-memory bytes a lane needs beyond lane_bytes() (the search
+  // entry's node stack and snapshot; 0 elsewhere)
+  int extra_bytes;
   // set by launch()
   int inv_in_smem;
   int g_staged;  // 0: G and G_solve read through L2, 1: G in shared memory, 2: both
@@ -404,15 +408,12 @@ __host__ __device__ __forceinline__ size_t lane_bytes(int m, int s, bool inv_in_
               sizeof(int) * (4 + (kSlots ? s + m : 0)) + 4 * (3 * nws + nwm) + 4 * m);
 }
 
-// The loop of lane b: until it converges, is flagged infeasible
-// (dual-unbounded ray), overflows its slots (K4) or reaches max_iter; with
-// retry != 0, a lane flagged from its warm start is reset to a cold start
-// (empty set, identity inverse, every slot free) and every lane not done
-// runs up to max_iter more iterations (pallas_iu.py:509-523,
-// pallas_ciu.py:446-462). K3's resumable entry (pend0 set) continues a lane
-// from its full carried state for max_iter more iterations at most, as one
-// call of the Pallas stepper (pallas_iu.py:393-451): no retry, a done lane
-// untouched, infeas sticky.
+// One lane's state and its GI loop, in three pieces that K3, K4 and K3's
+// branch-and-bound search entry (inc_search.cu) call: load() enters the
+// lane from global memory, iterate() runs up to max_iter iterations on
+// what lives in shared memory and registers, store() writes the lane out.
+// The search keeps a Lane across its rounds and edits its bounds, eq rows,
+// multipliers and inverse in place between iterate() calls.
 //
 // Per iteration: lam* = inv @ rhs; a blocking step when a removable row's
 // multiplier has the wrong sign; otherwise the GI step for the most
@@ -426,161 +427,187 @@ __host__ __device__ __forceinline__ size_t lane_bytes(int m, int s, bool inv_in_
 // nonzero: elsewhere it adds +-0. Where a factor of it is not finite it
 // runs over the whole inverse, so NaN and inf spread as in the plain one.
 template <typename T, bool kSlots, int NT>
-__device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const T* GsT,
-                                     unsigned char* base) {
-  const int m = a.m, s = a.s;
-  const int tid = NT == 32 ? (threadIdx.x & 31) : threadIdx.x;
-  const int ln = threadIdx.x & 31, wid = NT == 32 ? 0 : (threadIdx.x >> 5);
-  const int nwm = (m + 31) >> 5, nws = (s + 31) >> 5;
-  T* lam = reinterpret_cast<T*>(base);
-  T* ls = lam + m;    // lam* in row space
-  T* lb = ls + m;     // working point lam_base
-  T* c = lb + m;      // G @ lam_base
-  T* vup = c + m;
-  T* vlo = vup + m;
-  T* du = vlo + m;
-  T* dl = du + m;
-  T* dvr = dl + m;    // GI direction in row space
-  T* xw = dvr + m;    // inverse-space vectors: rhs, v_j, v_ch
-  T* yw = xw + s;     // inv @ xw
-  T* Re = yw + s;     // inv[:, changed index]
-  T* t0s = Re + s;    // the Woodbury factors of each row
-  T* t1s = t0s + s;
-  T* Rs = t1s + s;
-  T* red_v = Rs + (a.inv_in_smem ? s * (s + 1) : 0);
-  int* red_i = reinterpret_cast<int*>(red_v + 4);
-  int* slot_row = red_i + 4;
-  int* slot_of = slot_row + (kSlots ? s : 0);
-  unsigned* mx = reinterpret_cast<unsigned*>(slot_of + (kSlots ? m : 0));  // xw's list
-  unsigned* mb = mx + nws;       // lam_base's list
-  unsigned* msup = mb + nwm;     // the update's support: Re != 0 or yw != 0
-  unsigned* mfree = msup + nws;  // free slots (K4)
-  uint8_t* act = reinterpret_cast<uint8_t*>(mfree + nws);
-  uint8_t* side = act + m;
-  uint8_t* eq = side + m;
-  uint8_t* immut = eq + m;
+struct Lane {
+  int m, s, tid, ln, wid, nwm, nws, ld;
+  T *lam, *ls, *lb, *c, *vup, *vlo, *du, *dl, *dvr, *xw, *yw, *Re, *t0s, *t1s, *R, *red_v;
+  int *red_i, *slot_row, *slot_of;
+  unsigned *mx, *mb, *msup, *mfree;
+  uint8_t *act, *side, *eq, *immut;
+  // dense: the inverse holds a value that is not finite, so a zero entry of
+  // the vector it multiplies counts too (0 * inf is NaN)
+  bool dense;
+  int nocc;  // occupied slots (K4)
+  int ovf, done, infeas, pend, pend_side;
+
+  // Carve lane b's arrays out of its shared memory at base, in the order
+  // lane_bytes() counts them.
+  __device__ __forceinline__ Lane(const Args<T>& a, int b, unsigned char* base)
+      : dense(false), nocc(0), ovf(0), done(0), infeas(0), pend(-1), pend_side(1) {
+    m = a.m;
+    s = a.s;
+    tid = NT == 32 ? (threadIdx.x & 31) : threadIdx.x;
+    ln = threadIdx.x & 31;
+    wid = NT == 32 ? 0 : (threadIdx.x >> 5);
+    nwm = (m + 31) >> 5;
+    nws = (s + 31) >> 5;
+    lam = reinterpret_cast<T*>(base);
+    ls = lam + m;    // lam* in row space
+    lb = ls + m;     // working point lam_base
+    c = lb + m;      // G @ lam_base
+    vup = c + m;
+    vlo = vup + m;
+    du = vlo + m;
+    dl = du + m;
+    dvr = dl + m;    // GI direction in row space
+    xw = dvr + m;    // inverse-space vectors: rhs, v_j, v_ch
+    yw = xw + s;     // inv @ xw
+    Re = yw + s;     // inv[:, changed index]
+    t0s = Re + s;    // the Woodbury factors of each row
+    t1s = t0s + s;
+    T* Rs = t1s + s;
+    red_v = Rs + (a.inv_in_smem ? s * (s + 1) : 0);
+    red_i = reinterpret_cast<int*>(red_v + 4);
+    slot_row = red_i + 4;
+    slot_of = slot_row + (kSlots ? s : 0);
+    mx = reinterpret_cast<unsigned*>(slot_of + (kSlots ? m : 0));  // xw's list
+    mb = mx + nws;       // lam_base's list
+    msup = mb + nwm;     // the update's support: Re != 0 or yw != 0
+    mfree = msup + nws;  // free slots (K4)
+    act = reinterpret_cast<uint8_t*>(mfree + nws);
+    side = act + m;
+    eq = side + m;
+    immut = eq + m;
+    const size_t ss = static_cast<size_t>(s) * s;
+    R = a.inv_in_smem ? Rs : a.inv + b * ss;
+    ld = a.inv_in_smem ? s + 1 : s;
+  }
 
   // index k of the inverse stands for row row_at(k) (-1: a free slot); row
   // i sits at index index_of(i) (-1: none); index k is in the working set
   // when held(k)
-  auto row_at = [&](int k) -> int {
+  __device__ __forceinline__ int row_at(int k) const {
     if constexpr (kSlots) return slot_row[k];
     return k;
-  };
-  auto index_of = [&](int i) -> int {
+  }
+  __device__ __forceinline__ int index_of(int i) const {
     if constexpr (kSlots) return slot_of[i];
     return i;
-  };
-  auto held = [&](int k) -> bool {
+  }
+  __device__ __forceinline__ bool held(int k) const {
     if constexpr (kSlots) return slot_row[k] >= 0;
     return act[k] != 0;
-  };
+  }
   // the list of the k < n where pred(k): one ballot word per 32 indices,
   // over this warp's chunks; pred(k) reads what the thread that owns k wrote
-  auto ballots = [&](int n, unsigned* mask, auto&& pred) {
+  template <typename P>
+  __device__ __forceinline__ void ballots(int n, unsigned* mask, P&& pred) const {
     for (int k0 = wid * 32; k0 < n; k0 += NT) {
       const unsigned word = __ballot_sync(kFull, k0 + ln < n && pred(k0 + ln));
       if (ln == 0) mask[k0 >> 5] = word;
     }
-  };
-  // dense: the inverse holds a value that is not finite, so a zero entry of
-  // the vector it multiplies counts too (0 * inf is NaN)
-  bool dense = false;
-  auto list_xw = [&] {
+  }
+  __device__ __forceinline__ void list_xw() {
     ballots(s, mx, [&](int k) { return dense || xw[k] != T(0); });
     team_sync<NT>();
-  };
+  }
 
-  const size_t ob = static_cast<size_t>(b) * m;
-  const size_t ss = static_cast<size_t>(s) * s;
-  T* R = a.inv_in_smem ? Rs : a.inv + b * ss;
-  const int ld = a.inv_in_smem ? s + 1 : s;
-  const T tiny = T(1e-30), big = a.big;
-
-  const bool resume = a.pend0 != nullptr;
-  const int inv0_nonfinite =
-      copy_inv<T, false>(R, ld, const_cast<T*>(a.inv0 + b * a.inv0_stride), s, tid, NT);
-  // the lane's rows: kRows rows' loads in flight before their stores
-  int nact = 0;
-  for (int i0 = tid; i0 < m; i0 += NT * kRows) {
-    T r_du[kRows], r_dl[kRows], r_l0[kRows];
-    uint8_t r_a[kRows], r_s[kRows], r_e[kRows], r_im[kRows];
+  // Enter lane b from global memory: its entry inverse, rows, slots (K4)
+  // and, at K3's resumable entry (pend0 set), its pending row and side,
+  // done and infeas.
+  __device__ __forceinline__ void load(const Args<T>& a, int b) {
+    const size_t ob = static_cast<size_t>(b) * m;
+    const bool resume = a.pend0 != nullptr;
+    const int inv0_nonfinite =
+        copy_inv<T, false>(R, ld, const_cast<T*>(a.inv0 + b * a.inv0_stride), s, tid, NT);
+    // the lane's rows: kRows rows' loads in flight before their stores
+    int nact = 0;
+    for (int i0 = tid; i0 < m; i0 += NT * kRows) {
+      T r_du[kRows], r_dl[kRows], r_l0[kRows];
+      uint8_t r_a[kRows], r_s[kRows], r_e[kRows], r_im[kRows];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r * NT;
-      if (i < m) {
-        r_du[r] = a.du_t[ob + i];
-        r_dl[r] = a.dl_t[ob + i];
-        r_l0[r] = a.lam0[ob + i];
-        r_a[r] = a.act0[ob + i];
-        r_s[r] = a.side0[ob + i];
-        r_e[r] = a.eq[static_cast<size_t>(b) * a.eq_stride + i];
-        r_im[r] = a.immut[i];
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r * NT;
+        if (i < m) {
+          r_du[r] = a.du_t[ob + i];
+          r_dl[r] = a.dl_t[ob + i];
+          r_l0[r] = a.lam0[ob + i];
+          r_a[r] = a.act0[ob + i];
+          r_s[r] = a.side0[ob + i];
+          r_e[r] = a.eq[static_cast<size_t>(b) * a.eq_stride + i];
+          r_im[r] = a.immut[i];
+        }
       }
-    }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r * NT;
-      if (i < m) {
-        du[i] = r_du[r];
-        dl[i] = r_dl[r];
-        act[i] = r_a[r] != 0;
-        side[i] = r_s[r] != 0;
-        lam[i] = (r_a[r] || resume) ? r_l0[r] : T(0);
-        eq[i] = r_e[r] != 0;
-        immut[i] = r_im[r] != 0;
-        nact += r_a[r] != 0;
-        if constexpr (kSlots) slot_of[i] = -1;
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r * NT;
+        if (i < m) {
+          du[i] = r_du[r];
+          dl[i] = r_dl[r];
+          act[i] = r_a[r] != 0;
+          side[i] = r_s[r] != 0;
+          lam[i] = (r_a[r] || resume) ? r_l0[r] : T(0);
+          eq[i] = r_e[r] != 0;
+          immut[i] = r_im[r] != 0;
+          nact += r_a[r] != 0;
+          if constexpr (kSlots) slot_of[i] = -1;
+        }
       }
     }
-  }
-  int nocc = 0;  // occupied slots (K4)
-  if constexpr (kSlots) {
-    nact = team_sum<NT>(nact, red_i);
-    team_sync<NT>();
-    for (int k = tid; k < s; k += NT) {
-      const int r = a.slots0[static_cast<size_t>(b) * s + k];
-      slot_row[k] = r;
-      if (r >= 0) slot_of[r] = k;
-      nocc += r >= 0;
-    }
-    ballots(s, mfree, [&](int k) { return slot_row[k] < 0; });
-    nocc = team_sum<NT>(nocc, red_i);
-  }
-  team_sync<NT>();
-
-  dense = team_any<NT>(inv0_nonfinite);
-  int ovf = kSlots && nact > s;  // the entry working set does not fit the slots
-  int done = ovf, infeas = 0, iters = 0, pend = -1, pend_side = 1;
-  if (resume) {
-    pend = a.pend0[b];
-    pend_side = a.pside0[b] != 0;
-    done = a.done0[b] != 0;
-    infeas = a.infeas0[b] != 0;
-  }
-
-  for (int phase = 0; phase < (a.retry ? 2 : 1); ++phase) {
-    if (phase == 1 && infeas) {
-      // a ray found from a warm start is not trusted: restart cold
-      for (int i = tid; i < m; i += NT) {
-        lam[i] = T(0);
-        act[i] = 0;
-        side[i] = 1;
-        if constexpr (kSlots) slot_of[i] = -1;
-      }
-      if constexpr (kSlots) {
-        for (int k = tid; k < s; k += NT) slot_row[k] = -1;
-        for (int w = tid; w < nws; w += NT) mfree[w] = all_bits(w, s);
-      }
-      set_identity(R, ld, s, tid, NT);
-      dense = false;
-      pend = -1;
-      done = 0;
-      infeas = 0;
-      nocc = 0;
+    if constexpr (kSlots) {
+      nact = team_sum<NT>(nact, red_i);
       team_sync<NT>();
+      for (int k = tid; k < s; k += NT) {
+        const int r = a.slots0[static_cast<size_t>(b) * s + k];
+        slot_row[k] = r;
+        if (r >= 0) slot_of[r] = k;
+        nocc += r >= 0;
+      }
+      ballots(s, mfree, [&](int k) { return slot_row[k] < 0; });
+      nocc = team_sum<NT>(nocc, red_i);
     }
-    for (int it = 0; it < a.max_iter; ++it) {
+    team_sync<NT>();
+
+    dense = team_any<NT>(inv0_nonfinite);
+    ovf = kSlots && nact > s;  // the entry working set does not fit the slots
+    done = ovf;
+    if (resume) {
+      pend = a.pend0[b];
+      pend_side = a.pside0[b] != 0;
+      done = a.done0[b] != 0;
+      infeas = a.infeas0[b] != 0;
+    }
+  }
+
+  // A cold start: empty working set, identity inverse, every slot free, no
+  // pending row (the warm-ray retry).
+  __device__ __forceinline__ void cold_reset() {
+    for (int i = tid; i < m; i += NT) {
+      lam[i] = T(0);
+      act[i] = 0;
+      side[i] = 1;
+      if constexpr (kSlots) slot_of[i] = -1;
+    }
+    if constexpr (kSlots) {
+      for (int k = tid; k < s; k += NT) slot_row[k] = -1;
+      for (int w = tid; w < nws; w += NT) mfree[w] = all_bits(w, s);
+    }
+    set_identity(R, ld, s, tid, NT);
+    dense = false;
+    pend = -1;
+    done = 0;
+    infeas = 0;
+    nocc = 0;
+    team_sync<NT>();
+  }
+
+  // Up to max_iter iterations, until the lane converges, is flagged
+  // infeasible (dual-unbounded ray) or overflows its slots (K4); a lane
+  // that enters done runs none. Returns the iterations run.
+  __device__ __forceinline__ int iterate(const Args<T>& a, const T* GT, const T* GsT,
+                                         int max_iter) {
+    const T tiny = T(1e-30), big = a.big;
+    int iters = 0;
+    for (int it = 0; it < max_iter; ++it) {
       if (done) break;
       const bool pending = pend >= 0;
 
@@ -835,27 +862,56 @@ __device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const
       }
       team_sync<NT>();
     }
+    return iters;
   }
 
-  for (int i = tid; i < m; i += NT) {
-    a.lam[ob + i] = lam[i];
-    a.act[ob + i] = act[i];
-    a.side[ob + i] = side[i];
-  }
-  if constexpr (kSlots)
-    for (int k = tid; k < s; k += NT) a.slots[static_cast<size_t>(b) * s + k] = slot_row[k];
-  if (a.inv_in_smem) copy_inv<T, true>(R, ld, a.inv + b * ss, s, tid, NT);
-  if (tid == 0) {
-    a.iters[b] = iters;
-    a.done[b] = done;
-    a.infeas[b] = infeas;
-    if constexpr (kSlots) a.ovf[b] = ovf;
-    if (resume) {
-      a.pend[b] = pend;
-      a.pside[b] = pend_side;
+  // Write lane b out: rows, slots (K4), the inverse where it lived in
+  // shared memory, the counts and flags.
+  __device__ __forceinline__ void store(const Args<T>& a, int b, int iters) {
+    const size_t ob = static_cast<size_t>(b) * m;
+    for (int i = tid; i < m; i += NT) {
+      a.lam[ob + i] = lam[i];
+      a.act[ob + i] = act[i];
+      a.side[ob + i] = side[i];
     }
+    if constexpr (kSlots)
+      for (int k = tid; k < s; k += NT) a.slots[static_cast<size_t>(b) * s + k] = slot_row[k];
+    const size_t ss = static_cast<size_t>(s) * s;
+    if (a.inv_in_smem) copy_inv<T, true>(R, ld, a.inv + b * ss, s, tid, NT);
+    if (tid == 0) {
+      a.iters[b] = iters;
+      a.done[b] = done;
+      a.infeas[b] = infeas;
+      if constexpr (kSlots) a.ovf[b] = ovf;
+      if (a.pend0 != nullptr) {
+        a.pend[b] = pend;
+        a.pside[b] = pend_side;
+      }
+    }
+    team_sync<NT>();
   }
-  team_sync<NT>();
+};
+
+// The loop of lane b: until it converges, is flagged infeasible, overflows
+// its slots (K4) or reaches max_iter; with retry != 0, a lane flagged from
+// its warm start is reset to a cold start and every lane not done runs up
+// to max_iter more iterations (pallas_iu.py:509-523, pallas_ciu.py:446-462).
+// K3's resumable entry (pend0 set) continues a lane from its full carried
+// state for max_iter more iterations at most, as one call of the Pallas
+// stepper (pallas_iu.py:393-451): no retry, a done lane untouched, infeas
+// sticky.
+template <typename T, bool kSlots, int NT>
+__device__ __forceinline__ void lane(const Args<T>& a, int b, const T* GT, const T* GsT,
+                                     unsigned char* base) {
+  Lane<T, kSlots, NT> L(a, b, base);
+  L.load(a, b);
+  int iters = 0;
+  for (int phase = 0; phase < (a.retry ? 2 : 1); ++phase) {
+    // a ray found from a warm start is not trusted: restart cold
+    if (phase == 1 && L.infeas) L.cold_reset();
+    iters += L.iterate(a, GT, GsT, a.max_iter);
+  }
+  L.store(a, b, iters);
 }
 
 // The most threads of a block whose teams have NT threads each: the
@@ -867,9 +923,10 @@ __host__ __device__ constexpr int block_threads(int NT) {
 // The body of a persistent block (each kernel's __global__ entry calls it):
 // G, and G_solve after it, staged once into shared memory (16-byte
 // cp.async) as launch() chose, then each team takes lanes from the work
-// counter until none is left.
-template <typename T, bool kSlots, int NT>
-__device__ __forceinline__ void run_lanes(Args<T> a) {
+// counter until none is left and runs body(b, GT, GsT, base) on each, base
+// its own shared memory.
+template <typename T, int NT, typename Body>
+__device__ __forceinline__ void for_each_lane(const Args<T>& a, Body&& body) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int next_lane;  // the wide team's lane, handed out by thread 0
   const T* GT = a.GT;
@@ -913,13 +970,25 @@ __device__ __forceinline__ void run_lanes(Args<T> a) {
       b = next_lane;
     }
     if (b >= a.B) break;
-    lane<T, kSlots, NT>(a, b, GT, GsT, base);
+    body(b, GT, GsT, base);
   }
 }
 
+// The GI bulk phase of every lane (K3's and K4's entries).
 template <typename T, bool kSlots, int NT>
-cudaError_t launch_team(void (*kernel)(Args<T>), Args<T> a, cudaStream_t stream) {
-  const size_t per_lane = lane_bytes<T, kSlots>(a.m, a.s, a.inv_in_smem);
+__device__ __forceinline__ void run_lanes(Args<T> a) {
+  for_each_lane<T, NT>(a, [&](int b, const T* GT, const T* GsT, unsigned char* base) {
+    lane<T, kSlots, NT>(a, b, GT, GsT, base);
+  });
+}
+
+// Launch kernel(a, extra...) with teams of NT threads: lanes a block and
+// the matrices staged as shared memory allows, one persistent block per SM
+// at most as occupancy allows.
+template <typename T, bool kSlots, int NT, typename... Extra>
+cudaError_t launch_team(void (*kernel)(Args<T>, Extra...), Args<T> a, cudaStream_t stream,
+                        Extra... extra) {
+  const size_t per_lane = lane_bytes<T, kSlots>(a.m, a.s, a.inv_in_smem) + a.extra_bytes;
   const size_t mat_bytes = sizeof(T) * static_cast<size_t>(a.m) * a.m;
   int dev = 0, nsm = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -953,7 +1022,7 @@ cudaError_t launch_team(void (*kernel)(Args<T>), Args<T> a, cudaStream_t stream)
   e = cudaMemsetAsync(a.work, 0, sizeof(int), stream);
   if (e != cudaSuccess) return e;
   last_plan = Plan{NT, lanes, blocks, a.g_staged, a.inv_in_smem, static_cast<int>(smem)};
-  kernel<<<blocks, threads, smem, stream>>>(a);
+  kernel<<<blocks, threads, smem, stream>>>(a, extra...);
   return cudaGetLastError();
 }
 

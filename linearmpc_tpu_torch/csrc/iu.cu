@@ -26,7 +26,9 @@
 // f64 straggler re-solve (big = 1e30, gamma_tol = sqrt(eps)). lmpc_iu_step
 // resumes each lane from its whole state (pending row and side, done,
 // infeas) for at most K iterations and returns that state: the stepper of
-// the hybrid branch-and-bound, whose GI state lives across its rounds.
+// the hybrid branch-and-bound's rounds, whose GI state lives across them
+// (on the CPU, and where a caller inspects the rounds one at a time; on the
+// card the search entry, inc_search.cu, runs the whole search).
 // Sentinels and tolerances come from the caller.
 
 #include "gi_common.cuh"

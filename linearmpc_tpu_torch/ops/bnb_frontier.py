@@ -16,13 +16,18 @@ own node stack; a round advances every lane at once:
   from the parent's multipliers and working set.
 * ``IncFrontier`` keeps the GI solver state (multipliers, working set,
   pending candidate, carried inverse R) across rounds: each round runs
-  the stepper's K iterations of every lane through K3's resumable
-  entry (``iu.step_iu``, the kernel on CUDA), then a management step
-  branches or prunes the lanes whose relaxation converged. At a branch the
-  near child continues the parent's state in place (only the branched row
-  clamps); a backtrack pop restarts from the root relaxation's snapshot.
-  This is the engine's float32 hybrid path where K3's routing rule admits
-  m (m <= 66).
+  the stepper's K iterations of every lane (K3's resumable entry,
+  ``iu.step_iu``), then a management step branches or prunes the lanes
+  whose relaxation converged. At a branch the near child continues the
+  parent's state in place (only the branched row clamps); a backtrack pop
+  restarts from the root relaxation's snapshot. Every quantity of a round
+  is per lane, so on CUDA ``solve`` runs the whole search in one launch of
+  K3's search entry (``iu.search_iu``, a warp a lane alternating K
+  iterations and the management), as the JAX package runs it in one
+  ``while_loop`` on its device; on the CPU it runs the rounds on the
+  plain step (``search_plain``, the kernel's plain version, on either
+  device). This is the engine's
+  float32 hybrid path where K3's routing rule admits m (m <= 66).
 * ``FrontierRounds`` keeps each lane's current node relaxation (the
   masked-Cholesky scheme with a carried Woodbury-updated inverse,
   ``dual_active_set._active_set_loop_wu``) across bounded rounds of
@@ -33,14 +38,18 @@ own node stack; a round advances every lane at once:
   the port runs the rounds rather than the float64 frontier.
 
 Management runs in the engine dtype, in float32 under the engine's
-``full_f32`` (the JAX package's ``Precision.HIGHEST``). The status rules
-are the JAX package's (``:391-403``, ``:754-778``). Deliberate differences:
+``full_f32`` (the JAX package's ``Precision.HIGHEST``); the incremental
+frontier's sums run in its search kernel's order (``lane_sum``, row sums
+in index order), so on the card kernel and rounds agree bit for bit. The
+status rules are the JAX package's (``:391-403``, ``:754-778``).
+Deliberate differences:
 lanes without a node are not re-solved (the JAX relax solves every lane
 and discards those); the pops that discard nodes whose bound reaches the
 incumbent (``prune_tops``) are one count per lane, not a loop with a host
 sync per pop; the state is batch-major with ``(pend, pend_side)`` in place
 of a signed one-hot; no batch padding to 128 lanes (the kernels take any
-batch). The only host sync of an incremental round is its loop condition.
+batch). The only host sync of an incremental round is its loop condition;
+the search entry makes none.
 
 The final incumbent is re-solved in float64 from its working set, so
 branching in float32 costs accuracy only in which near-tied node wins (an
@@ -55,6 +64,7 @@ import torch
 
 from . import iu
 from .bnb import BIG, BIN_TOL
+from .bulk import ordered_matvec
 from .dual_active_set import (
     LDPArrays,
     Solution,
@@ -118,6 +128,8 @@ class IncState(NamedTuple):
     nodes: torch.Tensor        # (B,) int32
     iters: torch.Tensor        # (B,) int32
     exhausted: torch.Tensor    # (B,) bool
+    rounds: torch.Tensor       # (B,) int32: rounds the lane was solving a node
+    retries: torch.Tensor      # (B,) int32: cold ray retries
 
 
 def prune_tops(top, inc_found, inc_fval, stack_bound):
@@ -131,6 +143,21 @@ def prune_tops(top, inc_found, inc_fval, stack_bound):
     q = (pos >= top[:, None]) | (inc_found[:, None] & (stack_bound >= inc_fval[:, None]))
     run = q.flip(1).to(torch.int32).cumprod(1).flip(1)
     return top - (run * (pos < top[:, None])).sum(1)
+
+
+def lane_sum(terms):
+    """Row sums of (B, n) ``terms`` in the order of the search kernel's
+    warp (``csrc/inc_search.cu::warp_sum``): thread t adds entries t,
+    t + 32, ... in turn, then a butterfly adds the 32 partial sums."""
+    B, n = terms.shape
+    w = -(-n // 32) * 32
+    t = torch.nn.functional.pad(terms, (0, w - n)).reshape(B, w // 32, 32)
+    p = t[:, 0]
+    for k in range(1, w // 32):
+        p = p + t[:, k]
+    for o in (16, 8, 4, 2, 1):  # thread i adds thread i ^ o's sum: the pairs swapped
+        p = p + p.reshape(B, 16 // o, 2, o).flip(2).reshape(B, 32)
+    return p[:, 0]
 
 
 def _take(x, j):
@@ -347,11 +374,14 @@ def solve_bnb_frontier(arr: LDPArrays, arr_hi: LDPArrays | None, thetas, relax: 
 class IncFrontier:
     """The incremental node-frontier B&B (``bnb_frontier.py:460-785``) over
     ``stepper(du_l, dl_l, eq_l, gi) -> (gi, steps)``, K3's resumable entry
-    (``iu.make_iu_stepper``). ``solve`` runs ``init``, then ``round`` while
-    ``running`` (the round's one host sync), then ``finish``; the pieces are
-    public so a caller can run and inspect single rounds."""
+    (``iu.make_iu_stepper``). ``solve`` runs the search, then ``finish``:
+    on CUDA ``search`` (one launch of K3's search entry, no host sync), on
+    the CPU ``search_plain`` (``init``, then ``round`` on the plain step
+    while ``running``, the round's one host sync). The rounds are public
+    so a caller can run and inspect them one at a time on either device,
+    on K3's step entry or on the plain step."""
 
-    def __init__(self, arr: LDPArrays, arr_hi: LDPArrays | None, stepper, *,
+    def __init__(self, arr: LDPArrays, arr_hi: LDPArrays | None, stepper: iu.IUStepper, *,
                  stack_cap: int = 64, node_limit: int = 1024, node_cap: int = 200,
                  use_cholesky: bool = True):
         self.arr, self.arr_hi, self.stepper = arr, arr_hi, stepper
@@ -364,12 +394,17 @@ class IncFrontier:
         self.idx = torch.arange(m, device=arr.G.device)
         self.rounds = 0
 
+    def _prepare(self, thetas):
+        arr = self.arr
+        self.thetas = thetas = torch.as_tensor(thetas, device=arr.G.device)
+        self.du_t, self.dl_t, self.U0, self.f_t = _theta_terms(arr, thetas)
+        return thetas
+
     def init(self, thetas) -> IncState:
         arr = self.arr
         dtype, dev = arr.G.dtype, arr.G.device
-        self.thetas = thetas = torch.as_tensor(thetas, device=dev)
+        thetas = self._prepare(thetas)
         B, m, cap = thetas.shape[0], arr.G.shape[0], self.stack_cap
-        self.du_t, self.dl_t, self.U0, self.f_t = _theta_terms(arr, thetas)
         self.bidx = torch.arange(B, device=dev)
         self.rounds = 0
         f32 = torch.float32
@@ -394,14 +429,17 @@ class IncFrontier:
             ray_retry=zb(B), inc_fval=torch.full((B,), BIG, dtype=dtype, device=dev),
             inc_active=zb(B, m), inc_side=zb(B, m), inc_found=zb(B),
             nodes=torch.ones(B, dtype=torch.int32, device=dev),
-            iters=torch.zeros(B, dtype=torch.int32, device=dev), exhausted=zb(B))
+            iters=torch.zeros(B, dtype=torch.int32, device=dev), exhausted=zb(B),
+            rounds=torch.zeros(B, dtype=torch.int32, device=dev),
+            retries=torch.zeros(B, dtype=torch.int32, device=dev))
 
     def running(self, s: IncState) -> bool:
         """Whether a lane still solves a node or can pop one (one host sync)."""
         return bool((s.active_node | ((s.top > 0) & (s.nodes < self.node_limit))).any())
 
-    def round(self, s: IncState) -> IncState:
-        """k_round GI iterations of every lane, then branch / prune /
+    def round(self, s: IncState, plain: bool = False) -> IncState:
+        """k_round GI iterations of every lane (``stepper``, or its plain
+        version ``stepper.plain`` when ``plain``), then branch / prune /
         incumbent updates and backtrack pops. Tensors handed to the stepper
         are never modified in place afterwards."""
         arr, big, cap = self.arr, BIG, self.stack_cap
@@ -410,7 +448,8 @@ class IncFrontier:
         self.rounds += 1
 
         # ---- k_round iterations of every lane
-        gi, steps = self.stepper(s.du_l, s.dl_l, s.eq_l, s.gi)
+        step = self.stepper.plain if plain else self.stepper
+        gi, steps = step(s.du_l, s.dl_l, s.eq_l, s.gi)
         iters = s.iters + steps
         node_iter = s.node_iter + steps
 
@@ -426,13 +465,16 @@ class IncFrontier:
         retry = ray & ~s.ray_retry
         nfail = (ray & s.ray_retry) | nfail_exh
 
-        _U, fval = _objective(arr, self.U0, self.f_t, lam)
+        # U = U0 - HinvET lam, fval = U'HU / 2 + f_t'U and c = G lam, summed
+        # as the search kernel sums them
+        U = self.U0 - ordered_matvec(arr.HinvET, lam)
+        fval = 0.5 * lane_sum(ordered_matvec(arr.H, U) * U) + lane_sum(self.f_t * U)
         pruned_conv = conv & s.inc_found & (fval >= s.inc_fval)
-        c = lam @ arr.G.T
+        c = ordered_matvec(arr.G, lam)
         # mid-solve bound pruning: every GI iterate is dual feasible, so the
         # dual value is a lower bound on the node optimum at every iteration
         d_side = torch.where(side, s.du_l, s.dl_l).to(dtype)
-        gval = fval - torch.where(act, lam * (d_side + c), 0.0).sum(1)
+        gval = fval - lane_sum(torch.where(act, lam * (d_side + c), 0.0))
         prune_mid = (s.active_node & ~done & s.inc_found
                      & (gval >= s.inc_fval + 1e-4 * (1.0 + s.inc_fval.abs())))
         slack_up = torch.where(arr.up_finite, du_t + c, big)
@@ -535,11 +577,31 @@ class IncFrontier:
         return IncState(s.stack_fixed, s.stack_side, s.stack_bound, top, cur_fixed,
                         cur_fside, active_node, node_iter, du_l, dl_l, eq_l, gi, root,
                         root_saved, ray_retry, inc_fval, inc_active, inc_side, inc_found,
-                        nodes, iters, exhausted)
+                        nodes, iters, exhausted, s.rounds + s.active_node.to(torch.int32),
+                        s.retries + retry.to(torch.int32))
 
-    def finish(self, s: IncState) -> Solution:
+    def search_plain(self, thetas) -> iu.SearchResult:
+        """The search entry's plain version on any device: ``init``, then
+        ``round`` on the plain step (``step_iu_plain``) while ``running``."""
+        s = self.init(thetas)
+        while self.running(s):
+            s = self.round(s, plain=True)
+        return iu.SearchResult(*(getattr(s, f) for f in iu.SearchResult._fields))
+
+    def search(self, thetas) -> iu.SearchResult:
+        """The whole search of every lane in one launch of K3's search entry
+        (CUDA tensors only; no host sync)."""
+        arr = self.arr
+        self._prepare(thetas)
+        return iu.search_iu(
+            self.stepper, self.du_t, self.dl_t, arr.is_eq, arr.up_finite, arr.lo_finite,
+            self.branchable_rows, arr.HinvET, arr.H, self.U0, self.f_t,
+            stack_cap=self.stack_cap, node_cap=self.node_cap, node_limit=self.node_limit)
+
+    def finish(self, s) -> Solution:
         """Statuses (``bnb_frontier.py:754-778``) and the float64 re-solve of
-        each incumbent's working set."""
+        each incumbent's working set, from the search's ``IncState`` or
+        ``iu.SearchResult``."""
         # 1 = proven optimal; 2 = exact incumbent but budget-limited search
         # (this path's `exhausted` is budget-only: ray prunes are certified
         # by a cold retry)
@@ -556,10 +618,13 @@ class IncFrontier:
         return _result(sol, s.inc_found, s.inc_active, s.inc_side, s.iters, status)
 
     def solve(self, thetas) -> Solution:
-        s = self.init(thetas)
-        while self.running(s):
-            s = self.round(s)
-        return self.finish(s)
+        """The search entry on CUDA, the rounds on the CPU; then ``finish``."""
+        dev = self.arr.G.device
+        if dev.type == "cuda":
+            return self.finish(self.search(thetas))
+        if dev.type == "cpu":
+            return self.finish(self.search_plain(thetas))
+        raise ValueError(f"the incremental frontier runs on cuda or cpu, got {dev}")
 
 
 class ChunkState(NamedTuple):

@@ -40,15 +40,15 @@ Two kinds of problem take other paths, in this order (``engine.py:
   dtype and device, on K1's float64 instantiation on CUDA at m <= 10;
 * **binary rows** (``has_binaries=True``), branch-and-bound
   (``engine.py:1245-1397``): in float32 the incremental node frontier
-  (``bnb_frontier.IncFrontier``) on K3's resumable entry, where the
-  frontier's routing rule ``iu_max_chunk_lanes(m, 20 MiB) >= 128`` admits
-  m (m <= 66), and beyond it the frontier rounds (``bnb_frontier.
-  FrontierRounds``) on the float64 node arrays; in float64 the
-  pop-per-round frontier with the GI relax for m <= 64 and the
-  masked-Cholesky relax above. Single solves outside the incremental
-  frontier, and a non-symmetric H, take the per-lane depth-first search
-  (``bnb.solve_bnb_dfs``), whose incumbents a float32 engine re-solves in
-  float64.
+  (``bnb_frontier.IncFrontier``: on CUDA one launch of K3's search entry,
+  on the CPU rounds of K3's resumable step), where the frontier's routing
+  rule ``iu_max_chunk_lanes(m, 20 MiB) >= 128`` admits m (m <= 66), and
+  beyond it the frontier rounds (``bnb_frontier.FrontierRounds``) on the
+  float64 node arrays; in float64 the pop-per-round frontier with the GI
+  relax for m <= 64 and the masked-Cholesky relax above. Single solves
+  outside the incremental frontier, and a non-symmetric H, take the
+  per-lane depth-first search (``bnb.solve_bnb_dfs``), whose incumbents a
+  float32 engine re-solves in float64.
 
 A (dp, mp) device mesh attached with ``attach_mesh`` sends batched solves of
 a problem with more than 512 rows (or any, when forced) to the row-sharded
@@ -287,8 +287,9 @@ class SolverEngine:
         """Branch-and-bound set-up (engine.py:1245-1397): the stack holds a
         depth-first path (2 nb + 2 nodes), a node relaxation gets 2 m + 24
         iterations. ``bnb_mode`` (``route``): "inc" (float32, the incremental
-        frontier on K3's resumable entry), "rounds" (float32 beyond K3's
-        frontier rule, ``FrontierRounds`` on the float64 node arrays),
+        frontier: K3's search entry on CUDA, K3's resumable step in rounds on
+        the CPU), "rounds" (float32 beyond K3's frontier rule,
+        ``FrontierRounds`` on the float64 node arrays),
         "frontier" (float64, pop-per-round with the GI relax at m <= 64 and
         the masked-Cholesky relax above) or "dfs" (a non-symmetric H, the
         per-lane depth-first search)."""

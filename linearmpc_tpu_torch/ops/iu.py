@@ -29,6 +29,12 @@ as the XLA loop does. Sentinels follow the callers: big = 3e38 and
 gamma_tol = 3.5e-4 in float32 (``pallas_iu.py:144``, ``:363``), big = 1e30
 and gamma_tol = sqrt(eps) in float64 (``dual_active_set.py:466``, ``:538``).
 
+``step_iu`` resumes each lane from its whole state for K iterations (the
+stepper of the hybrid search's rounds); ``search_iu`` runs the whole
+float32 incremental-frontier search in one launch of ``csrc/
+inc_search.cu``, whose plain version is the rounds
+(``bnb_frontier.IncFrontier.search_plain``).
+
 Deliberate difference from the Pallas kernel: every blend is a select, so
 a lane whose GI step length is the ``big`` sentinel keeps finite
 multipliers (the kernel's ``0 * inf`` arithmetic gating gives NaN there).
@@ -37,19 +43,23 @@ multipliers (the kernel's ``0 * inf`` arithmetic gating gives NaN there).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import cuda_lib
+from .bnb import BIG, BIN_TOL
 from .bulk import ordered_matvec
 from .dual_active_set import _masked_inverse
 
 # kernel launches (the count a run reads to show the path went through K3),
-# and those of them made through the resumable entry (``step_iu``)
+# and those of them made through the resumable entry (``step_iu``) and
+# through the branch-and-bound search entry (``search_iu``)
 LAUNCHES = 0
 STEP_LAUNCHES = 0
+SEARCH_LAUNCHES = 0
 
 LANES = 128
 TINY = 1e-30
@@ -551,22 +561,119 @@ def step_iu(G, Gs, du_t, dl_t, eq, immut, state: IUState, *, K: int, primal_tol:
     raise ValueError(f"step_iu runs on cuda or cpu tensors, got {du_t.device}")
 
 
-def last_plan() -> dict:
+def last_plan(lib: str = "iu") -> dict:
     """The launch plan the last K3 launch of this thread chose (``csrc/
-    gi_common.cuh``): threads a lane, lanes a block, blocks, matrices staged
-    in shared memory, inverse in shared memory, shared-memory bytes."""
+    gi_common.cuh``) in ``lib``, "iu" (``lmpc_iu`` / ``lmpc_iu_step``) or
+    "inc_search" (``lmpc_iu_search``): threads a lane, lanes a block,
+    blocks, matrices staged in shared memory, inverse in shared memory,
+    shared-memory bytes."""
     out = (ctypes.c_int * 6)()
-    cuda_lib.function("iu", "lmpc_iu_plan", [ctypes.c_void_p])(ctypes.addressof(out))
+    cuda_lib.function(lib, "lmpc_iu_plan", [ctypes.c_void_p])(ctypes.addressof(out))
     return dict(zip(("team", "lanes_per_block", "blocks", "g_staged", "inv_in_smem",
                      "smem_bytes"), out))
 
 
-def make_iu_stepper(G, Gs, immut, *, K: int, primal_tol: float, sign_tol: float):
+@dataclasses.dataclass(frozen=True)
+class IUStepper:
     """``step(du_l, dl_l, eq_l, state) -> (state, steps)``: ``K`` iterations
     of ``step_iu`` over (B, m) bounds and equality mask, for callers that own
-    the outer loop (the incremental frontier B&B; ``pallas_iu.py:393``)."""
-    def step(du_l, dl_l, eq_l, state):
-        return step_iu(G, Gs, du_l, dl_l, eq_l, immut, state, K=K, primal_tol=primal_tol,
-                       sign_tol=sign_tol)
+    the outer loop (the incremental frontier B&B; ``pallas_iu.py:393``).
+    Its fields are the search entry's (``search_iu``) too."""
 
-    return step
+    G: torch.Tensor
+    Gs: torch.Tensor
+    immut: torch.Tensor
+    K: int
+    primal_tol: float
+    sign_tol: float
+
+    def __call__(self, du_l, dl_l, eq_l, state):
+        return step_iu(self.G, self.Gs, du_l, dl_l, eq_l, self.immut, state, K=self.K,
+                       primal_tol=self.primal_tol, sign_tol=self.sign_tol)
+
+    def plain(self, du_l, dl_l, eq_l, state):
+        """The same K iterations through ``step_iu_plain`` on any device."""
+        return step_iu_plain(self.G, self.Gs, du_l, dl_l, eq_l, self.immut, state, K=self.K,
+                             primal_tol=self.primal_tol, sign_tol=self.sign_tol)
+
+
+def make_iu_stepper(G, Gs, immut, *, K: int, primal_tol: float, sign_tol: float) -> IUStepper:
+    return IUStepper(G, Gs, immut, int(K), float(primal_tol), float(sign_tol))
+
+
+class SearchResult(NamedTuple):
+    """What the incremental-frontier search hands ``IncFrontier.finish``,
+    a lane each, with its counts."""
+
+    inc_found: torch.Tensor   # (B,) bool
+    inc_fval: torch.Tensor    # (B,) float32
+    inc_active: torch.Tensor  # (B, m) bool: the incumbent's working set
+    inc_side: torch.Tensor    # (B, m) bool
+    nodes: torch.Tensor       # (B,) int32
+    iters: torch.Tensor       # (B,) int32
+    exhausted: torch.Tensor   # (B,) bool: a node hit its iteration cap
+    rounds: torch.Tensor      # (B,) int32: rounds the lane was solving a node
+    retries: torch.Tensor     # (B,) int32: cold ray retries
+
+
+_SEARCH_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 24
+                    + [ctypes.c_int] * 4 + [ctypes.c_double] * 6 + [ctypes.c_void_p])
+
+
+def search_iu(step: IUStepper, du_t, dl_t, is_eq, up_finite, lo_finite, branchable, HinvET,
+              H, U0, f_t, *, stack_cap: int, node_cap: int, node_limit: int) -> SearchResult:
+    """The whole float32 incremental-frontier search of every lane in one
+    launch of ``csrc/inc_search.cu`` (``lmpc_iu_search``): the rounds of
+    ``IncFrontier`` (``step``'s K GI iterations, then the management) run
+    by a warp a lane until the lane can neither solve nor pop. ``du_t``/
+    ``dl_t`` (B, m) and ``U0``/``f_t`` (B, n) are the lanes' theta terms,
+    ``HinvET`` (n, m) and ``H`` (n, n), all float32 on one CUDA device; the
+    masks (m,) bool. Sentinels: big = 3e38 in the GI loop (``step``'s), the
+    frontier's BIG = 1e30 and BIN_TOL in the management. CUDA tensors only:
+    it raises on any other (the plain version is the rounds,
+    ``IncFrontier.search_plain``)."""
+    global LAUNCHES, SEARCH_LAUNCHES
+    B, m = du_t.shape
+    n = HinvET.shape[0]
+    dtype, dev = du_t.dtype, du_t.device
+    if dev.type != "cuda":
+        raise ValueError(f"search_iu launches the CUDA kernel: its tensors must be on cuda, "
+                         f"got {dev}")
+    if dtype != torch.float32:
+        raise TypeError(f"search_iu takes float32, got {dtype}")
+    check_inputs("search_iu kernel", dtype, dev, B, m,
+                 dict(G=(step.G, (m, m)), Gs=(step.Gs, (m, m)), dl_t=(dl_t, (B, m)),
+                      HinvET=(HinvET, (n, m)), H=(H, (n, n)), U0=(U0, (B, n)),
+                      f_t=(f_t, (B, n))),
+                 dict(immut=(step.immut, (m,)), is_eq=(is_eq, (m,)),
+                      up_finite=(up_finite, (m,)), lo_finite=(lo_finite, (m,)),
+                      branchable=(branchable, (m,))))
+    big, gtol = sentinels(dtype)
+    mask = lambda t: t.to(device=dev, dtype=torch.bool).contiguous()
+    ins = [step.G.T.contiguous(), step.Gs.T.contiguous(), du_t.contiguous(), dl_t.contiguous(),
+           mask(is_eq), mask(step.immut), mask(up_finite), mask(lo_finite), mask(branchable),
+           HinvET.contiguous(), H.contiguous(), U0.contiguous(), f_t.contiguous()]
+    root_R = torch.empty((B, m, m), dtype=dtype, device=dev)
+    out = SearchResult(
+        inc_found=torch.empty(B, dtype=torch.bool, device=dev),
+        inc_fval=torch.empty(B, dtype=dtype, device=dev),
+        inc_active=torch.empty((B, m), dtype=torch.bool, device=dev),
+        inc_side=torch.empty((B, m), dtype=torch.bool, device=dev),
+        nodes=torch.empty(B, dtype=torch.int32, device=dev),
+        iters=torch.empty(B, dtype=torch.int32, device=dev),
+        exhausted=torch.empty(B, dtype=torch.bool, device=dev),
+        rounds=torch.empty(B, dtype=torch.int32, device=dev),
+        retries=torch.empty(B, dtype=torch.int32, device=dev))
+    work = torch.empty(1, dtype=torch.int32, device=dev)
+    if B > 0:
+        fn = cuda_lib.function("inc_search", "lmpc_iu_search", _SEARCH_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(m, n, B, *(t.data_ptr() for t in ins), root_R.data_ptr(),
+                     *(t.data_ptr() for t in out), work.data_ptr(), step.K, int(stack_cap),
+                     int(node_cap), int(node_limit), step.primal_tol, step.sign_tol, gtol, big,
+                     BIG, BIN_TOL, cuda_lib.stream(dev))
+        cuda_lib.check(err, "search_iu kernel launch")
+        LAUNCHES += 1
+        SEARCH_LAUNCHES += 1
+    return out
+

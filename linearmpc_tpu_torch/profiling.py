@@ -5,11 +5,12 @@ Port of ``linearmpc_tpu/profiling.py``. ``instrument`` wraps an engine's
 ``solve_batch`` with counters (``SolveStats``), synchronizing the engine's
 device where the JAX package blocks on the result. The operation and byte
 models count what the port's kernels compute (K1 ``csrc/bulk.cu``, K2
-``csrc/polish.cu``, K3 ``csrc/iu.cu``, K4 ``csrc/ciu.cu``), not the TPU
-kernels' one-hot gathers: they are the one definition of the bounds that
-``chip_smoke.py`` reports (``bound``, ``gi_bound``, ``k1_bound``,
-``k2_bound``, ``step_bound``). The peaks are the H100 SXM's (NVIDIA's data
-sheet, at its 700 W limit): HBM3 at 3.35 TB/s, float32 at 67 TFLOP/s
+``csrc/polish.cu``, K3 ``csrc/iu.cu`` and its search entry
+``csrc/inc_search.cu``, K4 ``csrc/ciu.cu``), not the TPU kernels' one-hot
+gathers: they are the one definition of the bounds that ``chip_smoke.py``
+reports (``bound``, ``gi_bound``, ``k1_bound``, ``k2_bound``,
+``step_bound``, ``search_bound``). The peaks are the H100 SXM's (NVIDIA's
+data sheet, at its 700 W limit): HBM3 at 3.35 TB/s, float32 at 67 TFLOP/s
 outside the tensor cores and float64 at 67 TFLOP/s on them, the card's
 highest rate for each type. ``overlap_report`` times K1 on one batch
 against K2 on another on two CUDA streams; ``trace`` records a
@@ -123,6 +124,14 @@ def gi_flops_per_lane_iter(m: int, s: int, w) -> float:
     return 2 * (3 * s * w + m * w) + 4 * w * w
 
 
+def search_management_flops(m: int, n: int):
+    """K3's search entry, one management step of a lane (at most m
+    multipliers nonzero): c = G lam (2 m^2), U = U0 - HinvET lam (2 n m),
+    HU and fval (2 n^2 + 4 n), the dual bound (4 m) and the fractionality
+    of each row (5 m)."""
+    return 2.0 * m * m + 2.0 * n * m + 2.0 * n * n + 4.0 * n + 9.0 * m
+
+
 def iu_flops_per_lane_iter(m: int, w: int | None = None) -> float:
     """K3 at a working set of w rows (all m rows if not given)."""
     return gi_flops_per_lane_iter(m, m, m if w is None else w)
@@ -216,6 +225,23 @@ def step_bound(args, st) -> tuple[float, str]:
     moved = sum(nbytes(t) // (2 if t.dtype == torch.int64 else 1)
                 for t in (*args[:6], *entry, *st))
     return bound(moved, flops, args[2].dtype)
+
+
+def search_bound(fr, res) -> tuple[float, str]:
+    """K3 search entry's bound on this run's data (``IncFrontier.search``
+    of ``fr`` returning ``res``): the inputs (G, G_solve, the lanes' bounds
+    and theta terms, HinvET, H, the masks) and the outputs once, and per
+    lane ``gi_flops_per_lane_iter`` for each GI iteration at the
+    incumbent's working set plus ``search_management_flops`` for each
+    round it ran. The root snapshot is scratch and stays out."""
+    arr, step = fr.arr, fr.stepper
+    m, n = arr.G.shape[0], arr.HinvET.shape[0]
+    w = res.inc_active.sum(1).double()
+    flops = float((res.iters.double() * gi_flops_per_lane_iter(m, m, w)).sum()
+                  + res.rounds.double().sum() * search_management_flops(m, n))
+    moved = nbytes(step.G, step.Gs, step.immut, fr.du_t, fr.dl_t, arr.is_eq, arr.up_finite,
+                   arr.lo_finite, fr.branchable_rows, arr.HinvET, arr.H, fr.U0, fr.f_t, *res)
+    return bound(moved, flops, torch.float32)
 
 
 # -- achieved rates ----------------------------------------------------------

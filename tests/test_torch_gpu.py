@@ -19,8 +19,12 @@ with a per-lane ``eq``, and on their wide-team paths: K3 in float64 at
 m = 160 (R in global memory) and K4 in float64 at s = 96 (the guard
 ladder's capacity). K3's resumable entry (``iu.step_iu``) is held against
 its plain step cold in both instantiations at ragged batches and on every
-launch of an incremental-frontier run; the hybrid engine on the card
-against the CPU float64 frontier, and the lexicographic hierarchy on K1's
+launch of an incremental-frontier run round by round; K3's search entry
+(``iu.search_iu``, the whole float32 search in one launch) against its
+plain version, those rounds, on every output of every lane (the satellite
+at ragged batches and with its node limit starved, ``invpend_contact`` at
+m = 61 with ray retries); the hybrid engine on the card against the CPU
+float64 frontier, and the lexicographic hierarchy on K1's
 float64 instantiation against the CPU ``LexSolver``. The offline analyses
 run no kernel of their own: the float64 LP oracle on the card against its
 CPU run, invpend's explicit enumeration on the card against the CPU's, and
@@ -522,13 +526,22 @@ def test_step_kernel_cold_matches_plain(B, dtype):
         st = _step_equal(args[:-1] + (st,), kw)
 
 
+def _kernel_rounds(fr, th):
+    """The incremental frontier round by round on K3's step entry (the
+    torch management between launches), as ``iu.SearchResult``."""
+    s = fr.init(th)
+    while fr.running(s):
+        s = fr.round(s)
+    return iu.SearchResult(*(getattr(s, f) for f in iu.SearchResult._fields))
+
+
 def test_step_kernel_matches_plain_along_the_frontier():
-    """Every K3 step launch of a 256-lane incremental frontier run, each
-    replayed against the plain step on its recorded inputs (pending rows,
-    branched eq, idle lanes, root-snapshot restarts)."""
+    """Every K3 step launch of a 256-lane incremental frontier run round by
+    round, each replayed against the plain step on its recorded inputs
+    (pending rows, branched eq, idle lanes, root-snapshot restarts)."""
     mpc, th = _satellite(256, seed=31)
     eng = mpc.engine
-    calls = _record(iu, "step_iu", lambda: eng.solve_batch(th))
+    calls = _record(iu, "step_iu", lambda: _kernel_rounds(eng.inc_frontier(), th))
     assert len(calls) > 10
     n_pend = 0
     for args, kw in calls:
@@ -539,7 +552,7 @@ def test_step_kernel_matches_plain_along_the_frontier():
 
 def test_hybrid_engine_on_card_matches_cpu_f64():
     """The satellite through setup() with no device: the incremental
-    frontier on K3's step entry; statuses and fval (within 1e-6 (1 + |f|))
+    frontier in one launch of K3's search entry; statuses and fval (within 1e-6 (1 + |f|))
     against the CPU float64 frontier, no -1 lane, binaries on a bound."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -548,9 +561,9 @@ def test_hybrid_engine_on_card_matches_cpu_f64():
     eng = mpc.engine
     assert eng.device.type == "cuda" and eng.bnb_mode == "inc"
     th = np.random.default_rng(32).uniform(-1.0, 1.0, (48, eng.ldp.n_theta))
-    before = iu.STEP_LAUNCHES
+    before = (iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES)
     sol = eng.solve_batch(th)
-    assert iu.STEP_LAUNCHES > before
+    assert (iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES) == (before[0] + 1, before[1])
     ref_mpc, _ = tmpc.mpc_examples("satellite")
     ref = ref_mpc.setup(device="cpu").engine.solve_batch(th)
     st = sol.status.cpu()
@@ -564,6 +577,53 @@ def test_hybrid_engine_on_card_matches_cpu_f64():
         lo, hi = mpc.umin[b], mpc.umax[b]
         off = np.minimum(np.abs(U[ok, :, b] - lo), np.abs(U[ok, :, b] - hi))
         assert off.max() <= 1e-5
+
+
+def _contact(B, seed, Np=3):
+    """``invpend_contact`` at Np = Nc = 3 (m = 61, the incremental frontier)
+    on the card: nodes whose warm ray is retried cold, capped nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend_contact", Np, Np)
+    mpc.setup(device="cuda", dtype=torch.float32)
+    th = np.random.default_rng(seed).uniform(-0.3, 0.3, (B, mpc.engine.ldp.n_theta))
+    return mpc, torch.as_tensor(th, device="cuda")
+
+
+@pytest.mark.parametrize("case", ["satellite B=1", "satellite B=17", "satellite B=512",
+                                  "satellite starved", "contact"])
+def test_search_entry_matches_rounds(case):
+    """K3's search entry (one launch for the whole search) against its
+    plain version, the rounds of the plain step (``step_iu_plain``) and the
+    torch management, which sum in the entry's order: every output of every
+    lane equal, and the finished solutions too; then against the rounds on
+    K3's step entry, which shares the entry's GI loop. The starved case
+    stops the search at 24 nodes (status 2); the contact case retries warm
+    rays cold and caps nodes."""
+    if case == "contact":
+        mpc, th = _contact(8, seed=3)
+    else:
+        B = 512 if case == "satellite starved" else int(case.split("=")[1])
+        mpc, th = _satellite(B, seed=40 + B)
+        if case == "satellite starved":
+            mpc.engine.bnb_node_limit = 24
+    eng = mpc.engine
+    assert eng.bnb_mode == "inc"
+    fr = eng.inc_frontier()
+    before = iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES
+    res_k = fr.search(th)
+    assert (iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES) == (before[0] + 1, before[1])
+    res_p = fr.search_plain(th)
+    assert (iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES) == (before[0] + 1, before[1])
+    torch.cuda.synchronize()
+    _same(tuple(res_k), tuple(res_p))
+    _same(tuple(res_k), tuple(_kernel_rounds(fr, th)))
+    sol_k, sol_p = fr.finish(res_k), fr.finish(res_p)
+    _same(tuple(sol_k), tuple(sol_p))
+    if case == "satellite starved":
+        assert bool((sol_k.status == 2).any())
+    if case == "contact":
+        assert int(res_k.retries.sum()) > 0
 
 
 def test_f32_hybrid_large_m_raises_on_card():
