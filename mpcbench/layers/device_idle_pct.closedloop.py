@@ -1,0 +1,3 @@
+"""Share of crazyflie-closedloop's traced window with no device operation running."""
+
+from mpcbench.readers import idle_pct as read  # noqa: F401
