@@ -88,8 +88,7 @@ run the kernels through new entry points:
   the m = 48 problem (K3), the replay bit for bit against a direct
   ``solve_single``, its launches counted alone (path ``export``) [29];
 * ``instrument`` on the cold B = 32768 tier, ``overlap_report`` (K1 on a
-  second stream beside K2; path ``overlap``), ``mfu_report`` of K1 and K3
-  from ``profiling.py``'s models, and a profiler trace [30];
+  second stream beside K2; path ``overlap``) and a profiler trace [30];
 * the mp-Schur row-sharded solver on a 1 x 1 mesh (NCCL, a world of one)
   at the JAX bench's m = 1024, B = 256, against the NumPy oracle, and the
   threshold and hybrid rules of ``attach_mesh`` [31].
@@ -1824,10 +1823,9 @@ def export_phase(dev, by_path: dict):
     log(f"    [29] {time.perf_counter() - t_phase:.1f} s")
 
 
-def profiling_phase(dev, by_path: dict, k1_run, k3_run):
+def profiling_phase(dev, by_path: dict):
     """Phase [30]: ``instrument`` on the cold B = 32768 tier, ``overlap_report``
-    (its launches to ``by_path["overlap"]``), ``mfu_report`` of K1 and K3 from
-    profiling's models at [7]'s and [14]'s launches, and a trace."""
+    (its launches to ``by_path["overlap"]``), and a trace."""
     t_phase = time.perf_counter()
     mpc = L.mpc_examples("invpend")[0].setup()
     eng = mpc.engine
@@ -1851,18 +1849,15 @@ def profiling_phase(dev, by_path: dict, k1_run, k3_run):
         f"{rep['fill_frac']:.4f}; launches {by_path['overlap']} on {card_line()}")
     check(by_path["overlap"]["bulk"] > 0 and by_path["overlap"]["polish"] > 0,
           "overlap_report launched no K1 or no K2")
-    for label, (ms, B, m, it, fl, by) in (("K1 cold f32 m=5", k1_run), ("K3 cold f32 m=48", k3_run)):
-        r = profiling.mfu_report(B / ms * 1e3, it, fl, bytes_per_lane_iter=by / max(it, 1.0))
-        log(f"  mfu_report {label} B={B}: {r['achieved_flops'] / 1e9:.2f} GFLOP/s, MFU "
-            f"{100 * r['mfu']:.4f}%, HBM {100 * r['hbm_util']:.3f}% (model "
-            f"{r['model_flops_per_solve']:.0f} FLOP a solve at {it:.2f} iterations)")
     with tempfile.TemporaryDirectory() as tmp:
         with profiling.trace(f"{tmp}/tr"):
             eng.solve_batch(th_dev)
             torch.cuda.synchronize()
         size = Path(f"{tmp}/tr/trace.json").stat().st_size
-    log(f"  trace: {size} bytes of Chrome trace")
+    names = [s.name for s in profiling.spans()]
+    log(f"  trace: {size} bytes of Chrome trace, program spans {names}")
     check(size > 0, "trace: empty file")
+    check(names == ["lmpc.engine.solve_batch"], f"trace: program spans {names}")
     log(f"    [30] {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2289,15 +2284,7 @@ def main() -> int:
     # the deployment and tooling paths, the mp-Schur solver
     codegen_phase(dev)
     export_phase(dev, by_path)
-    it_k1 = out_k1[3].double().mean().item()
-    w_k3 = out_k3[1].sum(1).double().mean().item()
-    it_k3 = out_k3[3].double().mean().item()
-    profiling_phase(
-        dev, by_path,
-        (ms_k1, B_COLD, 5, it_k1, profiling.phase1_flops_per_lane_iter(5),
-         profiling.phase1_bytes_per_lane(5)),
-        (ms_k3, B_LARGE, m_iu, it_k3, profiling.iu_flops_per_lane_iter(m_iu, w_k3),
-         profiling.iu_bytes_per_lane(m_iu)))
+    profiling_phase(dev, by_path)
     schur_phase(dev)
 
     # the counts of each kernel on each path's run

@@ -20,8 +20,9 @@ Deployment and tooling: embedded C for the controller and the explicit
 controller, and the batched ``solve_single`` saved with ``torch.export``
 as one custom operator that runs the kernels (``codegen.py``); the native
 C++ CPU runtime (``native_runtime.py``); solve counters, the kernels'
-operation and byte models, stream overlap and profiler traces
-(``profiling.py``); figures (``plotting.py``, matplotlib imported only when
+operation and byte models, stream overlap, profiler traces, and the
+solve paths' own spans and counters, recorded while a profiler session
+runs (``profiling.py``); figures (``plotting.py``, matplotlib imported only when
 a figure is drawn). Multi-device: (dp, mp) device meshes, the dp-sharded
 batched solve, multi-process set-up and the mp-Schur row-sharded solver on
 ``torch.distributed`` (``parallel/``), behind ``SolverEngine.attach_mesh``.

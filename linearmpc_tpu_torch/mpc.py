@@ -38,6 +38,7 @@ from .observer import (
 )
 from .ops.engine import SolverEngine, resolve_device
 from .ops.ldp import qp2ldp
+from .profiling import span
 from .types import Constraint, MPCSettings, MPCWeights, MPQP, ParameterRange
 from .utils.formatting import form_parameter
 from .utils.linalg import dare, matrixify
@@ -430,21 +431,26 @@ class MPC:
 
     def compute_control(self, x, *, r=None, d=None, uprev=None, p=None, check=True):
         """Optimal first control action (reference src/utils.jl:43-51)."""
-        theta = self.form_parameter(x, r, d, uprev, p)
-        U, fval, exitflag, info = self.solve(theta)
-        if check:
-            assert exitflag >= 1, f"solver failed with exitflag {exitflag}"
-        self.uprev = U[: self.model.nu] - self.K @ theta[: self.model.nx]
-        return self.uprev.copy()
+        with span("lmpc.mpc.control"):
+            U, theta = self._control(x, r, d, uprev, p, check)
+            self.uprev = U[: self.model.nu] - self.K @ theta[: self.model.nx]
+            return self.uprev.copy()
 
     def compute_control_trajectory(self, x, *, r=None, d=None, uprev=None, p=None, check=True):
         """Whole decision vector U (reference src/utils.jl:62-70)."""
-        theta = self.form_parameter(x, r, d, uprev, p)
+        with span("lmpc.mpc.control"):
+            U, theta = self._control(x, r, d, uprev, p, check)
+            self.uprev = U[: self.model.nu] - self.K @ theta[: self.model.nx]
+            return U
+
+    def _control(self, x, r, d, uprev, p, check):
+        """(U, theta) of one solve at the parameter the arguments form."""
+        with span("lmpc.mpc.parameter"):
+            theta = self.form_parameter(x, r, d, uprev, p)
         U, fval, exitflag, info = self.solve(theta)
         if check:
             assert exitflag >= 1, f"solver failed with exitflag {exitflag}"
-        self.uprev = U[: self.model.nu] - self.K @ theta[: self.model.nx]
-        return U
+        return U, theta
 
     def evaluate_cost(self, xs, us, rs=None, *, Q=None, R=None, Rr=None, S=None):
         """0.5 sum x'Qx + u'Ru + du'Rr du + x'Su (reference src/utils.jl:397-411)."""

@@ -62,6 +62,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..profiling import count, span
 from . import iu
 from .bnb import BIG, BIN_TOL
 from .bulk import ordered_matvec
@@ -398,12 +399,15 @@ class IncFrontier:
         arr = self.arr
         self.thetas = thetas = torch.as_tensor(thetas, device=arr.G.device)
         self.du_t, self.dl_t, self.U0, self.f_t = _theta_terms(arr, thetas)
-        return thetas
 
     def init(self, thetas) -> IncState:
-        arr = self.arr
+        self._prepare(thetas)
+        return self._start()
+
+    def _start(self) -> IncState:
+        """Every lane at its root node, for the prepared batch."""
+        arr, thetas = self.arr, self.thetas
         dtype, dev = arr.G.dtype, arr.G.device
-        thetas = self._prepare(thetas)
         B, m, cap = thetas.shape[0], arr.G.shape[0], self.stack_cap
         self.bidx = torch.arange(B, device=dev)
         self.rounds = 0
@@ -583,7 +587,11 @@ class IncFrontier:
     def search_plain(self, thetas) -> iu.SearchResult:
         """The search entry's plain version on any device: ``init``, then
         ``round`` on the plain step (``step_iu_plain``) while ``running``."""
-        s = self.init(thetas)
+        self._prepare(thetas)
+        return self._search_plain()
+
+    def _search_plain(self) -> iu.SearchResult:
+        s = self._start()
         while self.running(s):
             s = self.round(s, plain=True)
         return iu.SearchResult(*(getattr(s, f) for f in iu.SearchResult._fields))
@@ -591,8 +599,11 @@ class IncFrontier:
     def search(self, thetas) -> iu.SearchResult:
         """The whole search of every lane in one launch of K3's search entry
         (CUDA tensors only; no host sync)."""
-        arr = self.arr
         self._prepare(thetas)
+        return self._search()
+
+    def _search(self) -> iu.SearchResult:
+        arr = self.arr
         return iu.search_iu(
             self.stepper, self.du_t, self.dl_t, arr.is_eq, arr.up_finite, arr.lo_finite,
             self.branchable_rows, arr.HinvET, arr.H, self.U0, self.f_t,
@@ -607,12 +618,14 @@ class IncFrontier:
         # by a cold retry)
         budgeted = s.exhausted | (s.nodes >= self.node_limit)
         status = _status(s.inc_found, budgeted, budgeted)
-        if self.arr_hi is not None and self.arr.G.dtype == torch.float32:
-            sol = refined_polish(self.arr, self.arr_hi, self.thetas, s.inc_active, s.inc_side)
-        else:
-            hi = self.arr if self.arr_hi is None else self.arr_hi
-            sol = polish_solution(hi, self.thetas, s.inc_active, s.inc_side,
-                                  use_cholesky=self.use_cholesky)
+        with span("lmpc.bnb.polish"):
+            if self.arr_hi is not None and self.arr.G.dtype == torch.float32:
+                sol = refined_polish(self.arr, self.arr_hi, self.thetas, s.inc_active,
+                                     s.inc_side)
+            else:
+                hi = self.arr if self.arr_hi is None else self.arr_hi
+                sol = polish_solution(hi, self.thetas, s.inc_active, s.inc_side,
+                                      use_cholesky=self.use_cholesky)
         # a found incumbent whose polish residual stalled is not optimal
         status = torch.where(s.inc_found & (sol.status != 1), -1, status)
         return _result(sol, s.inc_found, s.inc_active, s.inc_side, s.iters, status)
@@ -620,11 +633,17 @@ class IncFrontier:
     def solve(self, thetas) -> Solution:
         """The search entry on CUDA, the rounds on the CPU; then ``finish``."""
         dev = self.arr.G.device
-        if dev.type == "cuda":
-            return self.finish(self.search(thetas))
-        if dev.type == "cpu":
-            return self.finish(self.search_plain(thetas))
-        raise ValueError(f"the incremental frontier runs on cuda or cpu, got {dev}")
+        if dev.type not in ("cuda", "cpu"):
+            raise ValueError(f"the incremental frontier runs on cuda or cpu, got {dev}")
+        with span("lmpc.bnb.prepare"):
+            self._prepare(thetas)
+        with span("lmpc.bnb.search"):
+            res = self._search() if dev.type == "cuda" else self._search_plain()
+        count("bnb.lanes", self.thetas.shape[0])
+        count("bnb.nodes", res.nodes)
+        count("bnb.iters", res.iters)
+        with span("lmpc.bnb.finish"):
+            return self.finish(res)
 
 
 class ChunkState(NamedTuple):

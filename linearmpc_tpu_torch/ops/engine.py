@@ -83,6 +83,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..profiling import count, span
 from . import bulk, ciu, iu, polish
 from .bnb import solve_bnb_dfs
 from .bnb_frontier import FrontierRounds, IncFrontier, make_xla_relax, solve_bnb_frontier
@@ -507,47 +508,54 @@ class SolverEngine:
     def _iu_batch(self, thetas, warm=None) -> Solution:
         arr, hi = self.arrays, self.arrays_hi
         B, m = thetas.shape[0], self.ldp.m
-        du_t, dl_t = self._bounds32(thetas)
-        if warm is None:
-            # cold entry states are exact: a ray found from them stands
-            lam0 = torch.zeros((B, m), dtype=torch.float32, device=self.device)
-            act0 = arr.is_eq.expand(B, m)
-            side0 = torch.ones((B, m), dtype=torch.bool, device=self.device)
-            R0 = self.iu_R0_init(B)
-        else:
-            lam0, act0, side0 = (torch.as_tensor(w, device=self.device) for w in warm)
-            act0 = act0.to(torch.bool) | arr.is_eq
-            R0 = iu.init_R_batch(arr.G_solve, act0)
-        lam32, act, side, iters, _done, infeas32, R = self._iu_phase1(
-            du_t, dl_t, lam0.to(torch.float32), act0, side0.to(torch.bool), R0,
-            retry=warm is not None)
+        with span("lmpc.iu.k3"):
+            du_t, dl_t = self._bounds32(thetas)
+            if warm is None:
+                # cold entry states are exact: a ray found from them stands
+                lam0 = torch.zeros((B, m), dtype=torch.float32, device=self.device)
+                act0 = arr.is_eq.expand(B, m)
+                side0 = torch.ones((B, m), dtype=torch.bool, device=self.device)
+                R0 = self.iu_R0_init(B)
+            else:
+                lam0, act0, side0 = (torch.as_tensor(w, device=self.device) for w in warm)
+                act0 = act0.to(torch.bool) | arr.is_eq
+                R0 = iu.init_R_batch(arr.G_solve, act0)
+            lam32, act, side, iters, _done, infeas32, R = self._iu_phase1(
+                du_t, dl_t, lam0.to(torch.float32), act0, side0.to(torch.bool), R0,
+                retry=warm is not None)
 
-        th64 = thetas.to(torch.float64)
-        du_h, dl_h = self._bounds64(th64)
-        lam, _, _ = self._richardson(lambda v: _mv(R, v.to(torch.float32)).double(),
-                                     act, side, du_h, dl_h, REFINE)
-        bad = self._kkt_bad(lam, act, side, du_h, dl_h)
-        U, fval = self._recover(th64, lam)
-        out = Solution(U, lam, act, side, fval, iters,
-                       self._status(infeas32, bad <= FIX_TOL))
+        with span("lmpc.iu.refine"):
+            th64 = thetas.to(torch.float64)
+            du_h, dl_h = self._bounds64(th64)
+            lam, _, _ = self._richardson(lambda v: _mv(R, v.to(torch.float32)).double(),
+                                         act, side, du_h, dl_h, REFINE)
+            bad = self._kkt_bad(lam, act, side, du_h, dl_h)
+            U, fval = self._recover(th64, lam)
+            out = Solution(U, lam, act, side, fval, iters,
+                           self._status(infeas32, bad <= FIX_TOL))
 
         # stragglers: a cold float64 re-solve with the same GI iteration
         # (cold on purpose, engine.py:301-309), on K3's float64 instantiation
-        k = min(max(128, B // 64), B)
-        idx = self._pools(bad, infeas32, k, k)
-        if idx.numel() == 0:
+        with span("lmpc.iu.pools"):
+            k = min(max(128, B // 64), B)
+            idx = self._pools(bad, infeas32, k, k)
+            n = idx.numel()
+        count("iu.resolve_lanes", n)
+        if n == 0:
             return out
-        n = idx.numel()
-        act_c = hi.is_eq.expand(n, m)
-        lam_f, act_f, side_f, it_f, done_f, inf_f, _R = iu.phase1_iu(
-            self._G64, self._Gs64, du_h[idx], dl_h[idx], self._eq, self._immut,
-            torch.zeros((n, m), dtype=torch.float64, device=self.device), act_c,
-            torch.ones((n, m), dtype=torch.bool, device=self.device),
-            iu.init_R_batch(hi.G_solve, hi.is_eq[None])[0], max_iter=self.bulk_cap + 24,
-            primal_tol=self._fix_ptol, sign_tol=1e-11)
-        fix = self._fix_solution(th64, idx, lam_f, act_f, side_f, iters[idx] + it_f,
-                                 self._f64_status(inf_f, done_f, lam_f))
-        return self._merge(out, idx, fix)
+        # the pooled lanes that float32 left uncertified (status -3 or -1)
+        count("iu.resolve_needed", lambda st=out.status, i=idx: (st[i] != 1).sum())
+        with span("lmpc.iu.resolve64"):
+            act_c = hi.is_eq.expand(n, m)
+            lam_f, act_f, side_f, it_f, done_f, inf_f, _R = iu.phase1_iu(
+                self._G64, self._Gs64, du_h[idx], dl_h[idx], self._eq, self._immut,
+                torch.zeros((n, m), dtype=torch.float64, device=self.device), act_c,
+                torch.ones((n, m), dtype=torch.bool, device=self.device),
+                iu.init_R_batch(hi.G_solve, hi.is_eq[None])[0], max_iter=self.bulk_cap + 24,
+                primal_tol=self._fix_ptol, sign_tol=1e-11)
+            fix = self._fix_solution(th64, idx, lam_f, act_f, side_f, iters[idx] + it_f,
+                                     self._f64_status(inf_f, done_f, lam_f))
+            return self._merge(out, idx, fix)
 
     @full_f32()
     def fused_rollout_solve_iu(self, thetas, lam0, act0, side0, R0):
@@ -557,22 +565,25 @@ class SolverEngine:
         Richardson. Returns (U f32, lam f32, act, side, iters, status, R)."""
         arr = self.arrays
         m = self.ldp.m
-        du_t, dl_t = self._bounds32(thetas)
-        lam32, act, side, iters, done, infeas32, R = self._iu_phase1(
-            du_t, dl_t, lam0.to(torch.float32), act0 | arr.is_eq, side0, R0, retry=True)
+        with span("lmpc.iu.k3"):
+            du_t, dl_t = self._bounds32(thetas)
+            lam32, act, side, iters, done, infeas32, R = self._iu_phase1(
+                du_t, dl_t, lam0.to(torch.float32), act0 | arr.is_eq, side0, R0, retry=True)
         # one Newton-Schulz pass keeps the carried inverse from drifting
-        actf = act.to(torch.float32)
-        eye = torch.eye(m, dtype=torch.float32, device=self.device)
-        Gs = arr.G_solve + 4.0 * float(np.finfo(np.float32).eps) * eye
-        M = Gs * actf[:, :, None] * actf[:, None, :] + torch.diag_embed(1.0 - actf)
-        R = torch.bmm(R, 2.0 * eye - torch.bmm(M, R))
+        with span("lmpc.iu.newton_schulz"):
+            actf = act.to(torch.float32)
+            eye = torch.eye(m, dtype=torch.float32, device=self.device)
+            Gs = arr.G_solve + 4.0 * float(np.finfo(np.float32).eps) * eye
+            M = Gs * actf[:, :, None] * actf[:, None, :] + torch.diag_embed(1.0 - actf)
+            R = torch.bmm(R, 2.0 * eye - torch.bmm(M, R))
 
-        th64 = thetas.to(torch.float64)
-        du_h, dl_h = self._bounds64(th64)
-        lam, rhs, actf64 = self._richardson(lambda v: _mv(R, v.to(torch.float32)).double(),
-                                            act, side, du_h, dl_h, REFINE_ROLL)
-        U, _ = self._recover(th64, lam)
-        status = self._status(infeas32, done & self._resolved(lam, rhs, actf64))
+        with span("lmpc.iu.refine"):
+            th64 = thetas.to(torch.float64)
+            du_h, dl_h = self._bounds64(th64)
+            lam, rhs, actf64 = self._richardson(lambda v: _mv(R, v.to(torch.float32)).double(),
+                                                act, side, du_h, dl_h, REFINE_ROLL)
+            U, _ = self._recover(th64, lam)
+            status = self._status(infeas32, done & self._resolved(lam, rhs, actf64))
         return U.float(), lam.float(), act, side, iters, status, R
 
     def _resolved(self, lam, rhs, actf):
@@ -819,23 +830,24 @@ class SolverEngine:
         """Batched solve of (B, n_theta) parameters; ``warm`` is an optional
         (lam0, act0, side0) warm start. The float32 tiers keep theta in
         float64 (only their bulk phase rounds it to float32)."""
-        in_dtype = torch.float64 if self.tier else self.dtype
-        thetas = torch.as_tensor(thetas, device=self.device).to(in_dtype)
-        if self.lex is not None:
-            return self.lex.solve_batch(thetas)
-        if self._mp_solver is not None:
-            return self._mp_solver(thetas)
-        if self.path == "hybrid":
-            return self._hybrid_batch(thetas)
-        if self.path == "small":
-            return self._tier_batch(thetas, warm)
-        if self.path == "iu":
-            return self._iu_batch(thetas, warm)
-        if self.path == "compact":
-            return self._ciu_batch(thetas, warm)
-        # "exact" and "single": batched solve_single (engine.py:1498-1501)
-        w = (None,) * 3 if warm is None else tuple(warm)
-        return solve_single(self.arrays, thetas, *w, **self._single_kw)
+        with span("lmpc.engine.solve_batch"):
+            in_dtype = torch.float64 if self.tier else self.dtype
+            thetas = torch.as_tensor(thetas, device=self.device).to(in_dtype)
+            if self.lex is not None:
+                return self.lex.solve_batch(thetas)
+            if self._mp_solver is not None:
+                return self._mp_solver(thetas)
+            if self.path == "hybrid":
+                return self._hybrid_batch(thetas)
+            if self.path == "small":
+                return self._tier_batch(thetas, warm)
+            if self.path == "iu":
+                return self._iu_batch(thetas, warm)
+            if self.path == "compact":
+                return self._ciu_batch(thetas, warm)
+            # "exact" and "single": batched solve_single (engine.py:1498-1501)
+            w = (None,) * 3 if warm is None else tuple(warm)
+            return solve_single(self.arrays, thetas, *w, **self._single_kw)
 
     @full_f32()
     def solve(self, theta) -> tuple[np.ndarray, float, int, dict]:
@@ -846,19 +858,21 @@ class SolverEngine:
         branch-and-bound by the depth-first search, except in the float32
         incremental frontier, which takes a batch of one. Returns (U, fval,
         status, info)."""
-        theta = torch.as_tensor(np.asarray(theta, dtype=np.float64).reshape(1, -1),
-                                device=self.device)
-        if self.path == "hybrid" and self.bnb_mode != "inc":
-            sol = self._dfs(theta)
-        elif self.path in ("lex", "hybrid"):
-            sol = self.solve_batch(theta)
-        else:
-            sol = solve_single(self.arrays, theta, **self._single_kw)
-        info = {
-            "iterations": int(sol.iters[0]),
-            "lam": sol.lam[0].cpu().numpy(),
-            "active": sol.active[0].cpu().numpy(),
-            "side": sol.side[0].cpu().numpy(),
-        }
-        return (sol.U[0].cpu().numpy().astype(np.float64), float(sol.fval[0]),
-                int(sol.status[0]), info)
+        with span("lmpc.engine.solve"):
+            theta = torch.as_tensor(np.asarray(theta, dtype=np.float64).reshape(1, -1),
+                                    device=self.device)
+            if self.path == "hybrid" and self.bnb_mode != "inc":
+                sol = self._dfs(theta)
+            elif self.path in ("lex", "hybrid"):
+                sol = self.solve_batch(theta)
+            else:
+                sol = solve_single(self.arrays, theta, **self._single_kw)
+            with span("lmpc.engine.to_host"):
+                info = {
+                    "iterations": int(sol.iters[0]),
+                    "lam": sol.lam[0].cpu().numpy(),
+                    "active": sol.active[0].cpu().numpy(),
+                    "side": sol.side[0].cpu().numpy(),
+                }
+                return (sol.U[0].cpu().numpy().astype(np.float64), float(sol.fval[0]),
+                        int(sol.status[0]), info)

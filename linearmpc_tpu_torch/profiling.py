@@ -1,5 +1,5 @@
 """Observability: solve counters, the kernels' work and bounds, stream
-overlap and profiler traces.
+overlap, profiler traces, and the program's own spans and counters.
 
 Port of ``linearmpc_tpu/profiling.py``. ``instrument`` wraps an engine's
 ``solve_batch`` with counters (``SolveStats``), synchronizing the engine's
@@ -14,7 +14,23 @@ data sheet, at its 700 W limit): HBM3 at 3.35 TB/s, float32 at 67 TFLOP/s
 outside the tensor cores and float64 at 67 TFLOP/s on them, the card's
 highest rate for each type. ``overlap_report`` times K1 on one batch
 against K2 on another on two CUDA streams; ``trace`` records a
-``torch.profiler`` trace and writes it in Chrome's format.
+``torch.profiler`` trace and writes it in Chrome's format, with the
+program's spans beside the profiler's events.
+
+**Spans and counters.** The solve paths mark their layer boundaries with
+``span("lmpc.<layer>.<stage>")`` and count their work with ``count(name,
+value)``. The switch is a ``torch.profiler`` session: while none records,
+a span or a count costs one check of the profiler's flag and stores
+nothing (it only marks the store as read); while one records, spans and
+counts go to one store in memory, which empties at the first record of
+the next session. Spans nest by the order they open, so the store serves
+one thread calling the program at a time. A span keeps
+``time.time_ns()`` at its start and end, the clock of the profiler's own
+host events, so spans, host events and device intervals share one time
+base; it enters no ``record_function``, launches nothing and reads nothing
+from the device. A count of a device tensor holds the tensor and reduces
+it only when ``counts`` or ``counted`` is read, after the session.
+``spans()`` returns the records, ``counts()`` the totals.
 
 Every measurement here runs on the engine's device; ``overlap_report``
 needs the card.
@@ -23,9 +39,12 @@ needs the card.
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -244,49 +263,139 @@ def search_bound(fr, res) -> tuple[float, str]:
     return bound(moved, flops, torch.float32)
 
 
-# -- achieved rates ----------------------------------------------------------
+# -- the program's spans and counters ----------------------------------------
+
+_recording = torch._C._autograd._profiler_enabled
 
 
-def mfu_report(
-    solves_per_s: float,
-    mean_iters: float,
-    flops_per_lane_iter: float,
-    *,
-    peak_flops: float = PEAK_FLOPS[torch.float32],
-    bytes_per_lane_iter: float = 0.0,
-    peak_bytes: float = HBM_BYTES_PER_S,
-) -> dict:
-    """Achieved FLOP/s and its share of the peak (MFU) for a measured
-    throughput, with the memory leg where ``bytes_per_lane_iter`` is given."""
-    fl = solves_per_s * mean_iters * flops_per_lane_iter
-    out = {
-        "achieved_flops": fl,
-        "mfu": fl / peak_flops,
-        "model_flops_per_solve": mean_iters * flops_per_lane_iter,
-    }
-    if bytes_per_lane_iter:
-        bw = solves_per_s * mean_iters * bytes_per_lane_iter
-        out["achieved_bytes_per_s"] = bw
-        out["hbm_util"] = bw / peak_bytes
+class Span(NamedTuple):
+    """One span of a profiler session. ``parent`` is the index in ``spans()``
+    of the span open around it (-1 for none), ``call`` the index of the
+    outermost span around it (its own for an outermost span): the spans of
+    one call into the program share it."""
+
+    name: str
+    start_ns: int        # time.time_ns(), the clock of the profiler's host events
+    end_ns: int | None   # None while the span is open
+    parent: int
+    call: int
+
+
+class _Store:
+    """The spans and counts of one profiler session."""
+
+    def __init__(self):
+        self.spans: list[list] = []    # [name, start_ns, end_ns, parent, call]
+        self.open: list[int] = []      # indices of the open spans, innermost last
+        self.counts: list[list] = []   # [name, value, read]: read once, after the session
+        self.stale = True              # the switch was seen off since the last record
+
+    def live(self) -> "_Store":
+        """The store a record goes to, emptied first where a session ended."""
+        if self.stale:
+            self.spans, self.open, self.counts = [], [], []
+            self.stale = False
+        return self
+
+    def seen(self) -> "_Store":
+        """The store as a reader finds it; read between sessions, it empties
+        at the next session's first record."""
+        if not _recording():
+            self.stale = True
+        return self
+
+
+_STORE = _Store()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "rec")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        st = _STORE.live()
+        i = len(st.spans)
+        parent = st.open[-1] if st.open else -1
+        self.rec = [self.name, 0, None, parent, st.spans[parent][4] if parent >= 0 else i]
+        st.spans.append(self.rec)
+        st.open.append(i)
+        self.rec[1] = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.rec[2] = time.time_ns()
+        st = _STORE
+        if st.open and st.spans[st.open[-1]] is self.rec:
+            st.open.pop()
+        return False
+
+
+def span(name: str):
+    """A context manager marking one stage of the program, recorded while a
+    ``torch.profiler`` session records; otherwise a shared no-op."""
+    if _recording():
+        return _Span(name)
+    _STORE.stale = True
+    return _OFF
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` to the counter ``name`` while a profiler session records:
+    a host integer, a device tensor (its sum), or a function of tensors the
+    caller already holds returning one of them. Tensors and functions are
+    held, and read only by ``counts``/``counted``, after the session: a
+    count launches nothing and reads nothing from the device."""
+    if _recording():
+        _STORE.live().counts.append([name, value, False])
+    else:
+        _STORE.stale = True
+
+
+def spans() -> list[Span]:
+    """The spans of the last profiler session, in the order they opened."""
+    return [Span(*r) for r in _STORE.seen().spans]
+
+
+def _read(entry):
+    if not entry[2]:
+        v = entry[1]() if callable(entry[1]) else entry[1]
+        entry[1] = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+        entry[2] = True
+    return entry[1]
+
+
+def counted(name: str) -> list:
+    """Each value counted under ``name`` in the last session, in order, on
+    the host (a NumPy array for a tensor)."""
+    return [_read(e) for e in _STORE.seen().counts if e[0] == name]
+
+
+def counts() -> dict:
+    """The totals of the last session's counters."""
+    out: dict = {}
+    for e in _STORE.seen().counts:
+        v = np.sum(_read(e))
+        out[e[0]] = out.get(e[0], 0) + (v.item() if isinstance(v, np.generic) else v)
     return out
 
 
-def ciu_mfu_line(engine, solves_per_s: float, mean_iters: float,
-                 value: bool = False):
-    """MFU summary for a compact-tier engine (string for logging, or the
-    bare MFU float with ``value=True``), at a full working set of s slots;
-    None / 'mfu n/a' when the engine has no compact slot budget."""
-    s = getattr(engine, "ciu_s_max", None)
-    if not s:
-        return None if value else "mfu n/a (no compact slot budget)"
-    m = engine.ldp.m
-    rep = mfu_report(solves_per_s, mean_iters, ciu_flops_per_lane_iter(m, s),
-                     bytes_per_lane_iter=ciu_bytes_per_lane(m, s) / max(mean_iters, 1.0))
-    if value:
-        return round(rep["mfu"], 5)
-    return (f"roofline {rep['achieved_flops']/1e12:.2f} TFLOP/s "
-            f"(MFU {rep['mfu']*100:.1f}%, HBM {rep['hbm_util']*100:.1f}%, "
-            f"model {rep['model_flops_per_solve']/1e6:.2f} MFLOP/solve)")
+def _write_spans(path: str):
+    """Add the session's spans to the Chrome trace at ``path`` as complete
+    events of this process, on the trace's own time base."""
+    with open(path) as f:
+        doc = json.load(f)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    pid, tid = os.getpid(), threading.get_native_id()
+    doc["traceEvents"].extend(
+        {"ph": "X", "cat": "lmpc", "name": sp.name, "pid": pid, "tid": tid,
+         "ts": (sp.start_ns - base) / 1e3, "dur": (sp.end_ns - sp.start_ns) / 1e3,
+         "args": {"index": i, "parent": sp.parent, "call": sp.call}}
+        for i, sp in enumerate(spans()) if sp.end_ns is not None)
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 # -- stream overlap of the small-m tier's two kernels -------------------------
@@ -363,13 +472,17 @@ def overlap_report(mpc, B: int = 32768, seed: int = 0, reps: int = 4) -> dict:
 def trace(logdir: str):
     """``torch.profiler`` trace of the block (the CPU, and the card where
     CUDA is available), written to ``logdir/trace.json`` in Chrome's
-    format; yields the profiler."""
+    format with the program's spans of the block (``spans()``); yields the
+    profiler. ``counts()`` reads the block's counters after it."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
+    _STORE.stale = True
     with profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    path = os.path.join(logdir, "trace.json")
+    prof.export_chrome_trace(path)
+    _write_spans(path)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .condense import get_affine_parameter_base_dim
+from .profiling import span
 
 
 class RolloutResult(NamedTuple):
@@ -128,6 +129,10 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
 
     @torch.no_grad()
     def rollout(x0s, rs=None, ds=None, ps=None, N: int = 100):
+        with span("lmpc.rollout.run"):
+            return run(x0s, rs, ds, ps, N)
+
+    def run(x0s, rs, ds, ps, N):
         x0s = c(x0s)
         B = x0s.shape[0]
         # normalize trajectories to (B, N + Np + 1, *) with hold-last padding
@@ -152,55 +157,60 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
                  else engine.ciu_carry_init(B) if engine.path == "compact" else None)
         out = {k: [] for k in ("xs", "us", "ys", "iters", "status")}
         for kk in range(N):
-            d_k = ds[:, kk, :]
-            y_m = x @ C.T + h_off + (d_k @ Dd.T if nd_sim else 0.0)
+            with span("lmpc.rollout.step"):
+                with span("lmpc.rollout.theta"):
+                    d_k = ds[:, kk, :]
+                    y_m = x @ C.T + h_off + (d_k @ Dd.T if nd_sim else 0.0)
 
-            if has_obs:
-                inov = y_m - xo @ oC.T - oh - (d_k @ oDd.T if nd_sim else 0.0)
-                xo = xo + inov @ oK.T
-                xhat = xo[:, :nx]
-            else:
-                xhat = x
-            d_est = xo[:, nx : nx + ndo] if offset_free else None
+                    if has_obs:
+                        inov = y_m - xo @ oC.T - oh - (d_k @ oDd.T if nd_sim else 0.0)
+                        xo = xo + inov @ oK.T
+                        xhat = xo[:, :nx]
+                    else:
+                        xhat = x
+                    d_est = xo[:, nx : nx + ndo] if offset_free else None
 
-            parts = [xhat]
-            if nr:
-                if r_preview:
-                    # reference window: steps k+1 .. k+Np (hold-last)
-                    r_flat = window(rs, kk + 1, Np).reshape(B, -1)
-                    parts.append(r_flat @ T2S.T if r_condense else r_flat)
-                else:
-                    parts.append(rs[:, kk, :])
-            if nd:
-                if d_preview:
-                    w = window(ds, kk, Np)
-                    if ndo:
-                        w = torch.cat([w, d_est[:, None, :].expand(B, Np, ndo)], dim=2)
-                    parts.append(w.reshape(B, -1))
-                else:
-                    parts.append(torch.cat([d_k, d_est], dim=1) if ndo else d_k)
-            if nuprev:
-                parts.append(uprev[:, :nuprev])
-            if np_:
-                if p_preview:
-                    parts.append(window(ps, kk, Np).reshape(B, -1))
-                else:
-                    parts.append(ps[:, kk, :])
-            theta = torch.cat(parts, dim=1)
+                    parts = [xhat]
+                    if nr:
+                        if r_preview:
+                            # reference window: steps k+1 .. k+Np (hold-last)
+                            r_flat = window(rs, kk + 1, Np).reshape(B, -1)
+                            parts.append(r_flat @ T2S.T if r_condense else r_flat)
+                        else:
+                            parts.append(rs[:, kk, :])
+                    if nd:
+                        if d_preview:
+                            w = window(ds, kk, Np)
+                            if ndo:
+                                w = torch.cat([w, d_est[:, None, :].expand(B, Np, ndo)], dim=2)
+                            parts.append(w.reshape(B, -1))
+                        else:
+                            parts.append(torch.cat([d_k, d_est], dim=1) if ndo else d_k)
+                    if nuprev:
+                        parts.append(uprev[:, :nuprev])
+                    if np_:
+                        if p_preview:
+                            parts.append(window(ps, kk, Np).reshape(B, -1))
+                        else:
+                            parts.append(ps[:, kk, :])
+                    theta = torch.cat(parts, dim=1)
 
-            U, lam_n, act, side, iters_n, status_n, carry = solve_step(
-                theta, lam, act, side, carry)
-            lam = lam_n.to(dtype)
-            u = U[:, :nu].to(dtype) - xhat @ K.T
+                with span("lmpc.rollout.solve"):
+                    U, lam_n, act, side, iters_n, status_n, carry = solve_step(
+                        theta, lam, act, side, carry)
 
-            if has_obs:
-                xo = xo @ oF.T + u @ oG.T + of + (d_k @ oGd.T if nd_sim else 0.0)
+                with span("lmpc.rollout.plant"):
+                    lam = lam_n.to(dtype)
+                    u = U[:, :nu].to(dtype) - xhat @ K.T
 
-            x_next = x @ Fp.T + u @ Gp.T + fp + (d_k @ Gd.T if nd_sim else 0.0)
-            for k, v in (("xs", x), ("us", u), ("ys", y_m), ("iters", iters_n),
-                         ("status", status_n)):
-                out[k].append(v)
-            x, uprev = x_next, u
+                    if has_obs:
+                        xo = xo @ oF.T + u @ oG.T + of + (d_k @ oGd.T if nd_sim else 0.0)
+
+                    x_next = x @ Fp.T + u @ Gp.T + fp + (d_k @ Gd.T if nd_sim else 0.0)
+                    for k, v in (("xs", x), ("us", u), ("ys", y_m), ("iters", iters_n),
+                                 ("status", status_n)):
+                        out[k].append(v)
+                    x, uprev = x_next, u
         return RolloutResult(*(torch.stack(out[k], dim=1)
                                for k in ("xs", "us", "ys", "iters", "status")))
 

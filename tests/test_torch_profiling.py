@@ -1,9 +1,9 @@
 """The port's profiling and plotting (``linearmpc_tpu_torch/profiling.py``,
 ``plotting.py``) on the CPU: the ``instrument`` counters, the operation
 and byte models that ``chip_smoke.py`` reports its bounds with (one
-definition: the script imports them), the ``mfu_report`` arithmetic, a
-profiler trace, and the figures against the JAX package's (polygons and
-the certification raster within 1e-9, under matplotlib's Agg backend)."""
+definition: the script imports them), a profiler trace, and the figures
+against the JAX package's (polygons and the certification raster within
+1e-9, under matplotlib's Agg backend)."""
 
 import json
 import sys
@@ -120,21 +120,12 @@ def test_chip_smoke_bounds_are_the_models():
                                          torch.float32)
 
 
-def test_models_and_mfu_report():
+def test_models():
     assert P.phase1_flops_per_lane_iter(5) == 150.0
     assert P.iu_flops_per_lane_iter(48) == 8 * 48 * 48 + 4 * 48 * 48
     assert P.ciu_flops_per_lane_iter(128, 16, 10) == 2 * (3 * 16 * 10 + 128 * 10) + 400
     assert P.ciu_bytes_per_lane(128, 16) - P.iu_bytes_per_lane(128) == (
         2 * 16 * 16 * 4 + 8 * 16 + 1 - 2 * 128 * 128 * 4)
-    rep = P.mfu_report(1e6, 10.0, 150.0, bytes_per_lane_iter=8.0)
-    assert rep["achieved_flops"] == pytest.approx(1.5e9)
-    assert rep["mfu"] == pytest.approx(1.5e9 / 67e12)
-    assert rep["model_flops_per_solve"] == pytest.approx(1500.0)
-    assert rep["achieved_bytes_per_s"] == pytest.approx(8e7)
-    assert rep["hbm_util"] == pytest.approx(8e7 / 3.35e12)
-    assert "hbm_util" not in P.mfu_report(1.0, 1.0, 1.0)
-    mpc = L.mpc_examples("invpend")[0].setup(device="cpu", dtype=torch.float32)
-    assert P.ciu_mfu_line(mpc.engine, 1e5, 20.0) == "mfu n/a (no compact slot budget)"
 
 
 def test_trace_writes_chrome_trace(tmp_path):
