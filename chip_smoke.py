@@ -7,8 +7,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
 It builds the hand-written kernels (K1 ``csrc/bulk.cu``, K2
 ``csrc/polish.cu``, K3 ``csrc/iu.cu`` and its search entry
-``csrc/inc_search.cu``, K4 ``csrc/ciu.cu``) from the sources, one nvcc
-each in parallel, holds each against its plain torch version on the card,
+``csrc/inc_search.cu``, K4 ``csrc/ciu.cu``, the IU rollout step's epilogue
+``csrc/iu_epilogue.cu``) from the sources, one nvcc each in parallel, holds each against its plain torch version on the card,
 and drives the port's three solve paths through the entry points a user
 calls, with the launch counts set to 0 just before each path and read just
 after:
@@ -17,11 +17,12 @@ after:
   with no device, which must land on the card), the cold B=32768 batch of
   the small-m tier and the warm-started 4096 x 500 rollout [4]-[7];
 * the IU tier (invpend 50/8 with the +-18 state box on ks 2..11, m=48):
-  the cold B=8192 batch and the 4096 x 500 rollout [8]-[10];
+  the cold B=8192 batch and the 4096 x 500 rollout [8]-[10], with the
+  epilogue kernel of a warm rollout step held against its plain version;
 * the compact tier (the box on ks 2..31, m=128): the cold B=8192 batch and
   the 2048 x 300 rollout [11]-[13];
 
-then times kernels, tiers and rollouts [14]; holds K3 and K4 against
+then times kernels (the epilogue's step too), tiers and rollouts [14]; holds K3 and K4 against
 their plain versions at ragged batch sizes, with a per-lane eq and on their
 wide-team paths (K3 f64 at m=160 with R in global memory, K4 f64 at s=96)
 [15]; replays, compares and times the K3/K4 launches the paths make
@@ -93,7 +94,9 @@ run the kernels through new entry points:
   at the JAX bench's m = 1024, B = 256, against the NumPy oracle, and the
   threshold and hybrid rules of ``attach_mesh`` [31].
 Every comparison of a kernel with its plain version requires every lane to
-agree and the outputs to be equal bit for bit. Every phase asserts; any
+agree and the outputs to be equal bit for bit, but the epilogue's: its
+float32 products sum in another order than cuBLAS's, so its statuses must
+be equal and its values within a tolerance. Every phase asserts; any
 failure exits non-zero.
 Without CUDA it exits 1 and prints no result. The second-to-last line is
 a JSON object with, per kernel, its launches on its path's run (and on
@@ -119,10 +122,11 @@ import numpy as np
 import torch
 
 import linearmpc_tpu_torch as L
-from linearmpc_tpu_torch.ops import bulk, ciu, cuda_lib, iu, polish
+from linearmpc_tpu_torch.ops import bulk, ciu, cuda_lib, iu, iu_epilogue, polish
 from linearmpc_tpu_torch import profiling
 from linearmpc_tpu_torch.native_runtime import NativeBatchSolver
 from linearmpc_tpu_torch.ops.dual_active_set import solve_single
+from linearmpc_tpu_torch.ops.engine import REFINE_ROLL, ROLL_RES
 from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
 # the bound of a kernel (its bytes at HBM3's rate, its operations at the
 # card's highest rate for their type): one definition with the port's models
@@ -152,8 +156,9 @@ B_CONTACT, CONTACT_REF, B_BENCH_CONTACT = 16, 4, 4
 B_LP = 1024                 # LP oracle lanes (tests/test_lp_oracle.py's generator)
 B_EVAL = 32768              # explicit point-location batch
 CERT_SAMPLE = 8             # every 8th IPM call of [27] replayed under the profiler
-KERNELS = ("bulk", "polish", "iu", "ciu", "inc_search")
-COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu)  # each module's LAUNCHES
+KERNELS = ("bulk", "polish", "iu", "ciu", "inc_search", "iu_epilogue")
+# each module's LAUNCHES
+COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu, iu_epilogue=iu_epilogue)
 PATHS = ("small", "iu", "compact", "hybrid", "lex", "contact", "single", "exact", "nonsym",
          "export", "overlap")
 # the discrete outputs of K3 / K4 compared lane by lane (index in the returns)
@@ -449,6 +454,72 @@ def compare_gi(label, out_k, out_p, fields, lam_i, inv_i, dtype):
     check(d_lam == 0 and d_inv == 0,
           f"{label} {dtype}: {d_lam} lam / {d_inv} inverse entries differ on agreeing lanes")
     return err
+
+
+def epilogue_inputs(eng, roll, x0s, rs, step: int = 10):
+    """The (thetas, act, side, done, infeas, R) with which the rollout's
+    warm step ``step`` (from 0) enters the epilogue kernel, every 7th lane
+    from the 5th flagged infeasible and every 11th from the 3rd not done,
+    so that statuses -3 and -1 come beside 1."""
+    calls = record_calls(eng, "_rollout_epilogue_cuda",
+                         lambda: roll(x0s, rs, None, N=step + 1))
+    th, act, side, done, infeas, R = calls[step][0]
+    done, infeas = done.clone(), infeas.clone()
+    infeas[5::7] = True
+    done[3::11] = False
+    return th, act, side, done, infeas, R
+
+
+def run_epilogue(eng, th, act, side, done, infeas, R):
+    """The epilogue kernel alone on one step's inputs, on the engine's
+    statics: (U, lam, status, R_new)."""
+    return iu_epilogue.epilogue(*eng._epilogue_statics, th, R, act, side, done, infeas,
+                                refine=REFINE_ROLL, res_tol=ROLL_RES)
+
+
+def compare_epilogue(label, eng, args) -> float:
+    """The epilogue kernel against ``_rollout_epilogue_plain`` on one
+    step's inputs: statuses equal on every lane, every status of the inputs
+    present, non-finite entries equal, and the finite ones within 1e-6 (U,
+    lam) and 1e-5 (R) as max |a - b| / (1 + |b|), the benchmark's ``u_err``
+    form. Returns the max |dU|, |dlam|."""
+    out_k = run_epilogue(eng, *args)
+    out_p = eng._rollout_epilogue_plain(*args)
+    torch.cuda.synchronize()
+    n_st = int((out_k[2] != out_p[2]).sum())
+    seen = set(out_k[2].unique().tolist())
+    errs, abs_err = [], 0.0
+    for name, i, tol in (("U", 0, 1e-6), ("lam", 1, 1e-6), ("R", 3, 1e-5)):
+        a, b = out_k[i].double(), out_p[i].double()
+        same_nf = (torch.equal(a.isnan(), b.isnan()) and torch.equal(a.isinf(), b.isinf())
+                   and torch.equal(a[a.isinf()], b[b.isinf()]))
+        fin = torch.isfinite(b)
+        d = (a[fin] - b[fin]).abs()
+        rel = float((d / (1.0 + b[fin].abs())).max()) if d.numel() else 0.0
+        if i < 3 and d.numel():
+            abs_err = max(abs_err, float(d.max()))
+        errs.append(f"{name} {rel:.3e} (<= {tol:.0e})")
+        check(same_nf, f"{label}: {name}'s non-finite entries differ")
+        check(rel <= tol, f"{label}: {name} off by {rel:.3e} > {tol:.0e}")
+    log(f"  {label}: B={out_k[2].shape[0]}, m={eng.ldp.m}: status differs on {n_st} lanes "
+        f"(statuses {sorted(seen)}); max |a - b| / (1 + |b|): {', '.join(errs)}; "
+        f"max |dU|, |dlam| {abs_err:.3e}")
+    check(n_st == 0, f"{label}: status differs on {n_st} lanes")
+    check({-3, -1, 1} <= seen, f"{label}: statuses {sorted(seen)} lack one of -3, -1, 1")
+    return abs_err
+
+
+def epilogue_bound(eng, args, out) -> tuple[float, str]:
+    """The epilogue kernel's bound on one step's data: its inputs, statics
+    and outputs once; per lane the Newton-Schulz pass's two m^3
+    multiply-adds in float32 and, per Richardson pass, an m^2 product by
+    G_solve (float64) and by R (float32), with U's and the bounds'
+    products (both types at the card's one peak, ``profiling.bound``)."""
+    B, m = args[5].shape[0], args[5].shape[1]
+    n, nth = eng.ldp.n, args[0].shape[1]
+    flops = B * (4.0 * m ** 3 + (REFINE_ROLL + 1) * 4.0 * m * m + 2.0 * n * (m + nth)
+                 + 2.0 * m * nth)
+    return bound(nbytes(*eng._epilogue_statics, *args, *out), flops, torch.float32)
 
 
 def warm_gi_inputs(eng, out, thetas, rng):
@@ -1314,7 +1385,8 @@ def single_phases(dev, by_path: dict) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     by_path["single"] = read_counts()
     log(f"    single-solve path launches: {by_path['single']}")
-    check(by_path["single"] == dict(bulk=len(k1_calls), polish=0, iu=len(k3_calls), ciu=0),
+    check(by_path["single"] == dict(bulk=len(k1_calls), polish=0, iu=len(k3_calls), ciu=0,
+                                    iu_epilogue=0),
           "single solves: launches other than the golden solve's K1 and the infeasible "
           "point's K3")
 
@@ -2121,8 +2193,14 @@ def main() -> int:
                                              B_ROLL_IU, N_ROLL_IU, 8)
     by_path["iu"] = read_counts()
     launches["iu"] = by_path["iu"]["iu"]
-    log(f"    IU path launches: K3 {launches['iu']}")
+    launches["iu_epilogue"] = by_path["iu"]["iu_epilogue"]
+    log(f"    IU path launches: K3 {launches['iu']}, epilogue {launches['iu_epilogue']}")
     check(launches["iu"] > 0, "K3 was never launched on the IU path")
+    check(launches["iu_epilogue"] == N_ROLL_IU,
+          f"the epilogue ran {launches['iu_epilogue']} times in {N_ROLL_IU} rollout steps")
+    ep_args = epilogue_inputs(eng_iu, roll_iu, x0_iu, rs_iu)
+    ep_err = compare_epilogue("epilogue of warm rollout step 10 vs _rollout_epilogue_plain",
+                              eng_iu, ep_args)
 
     # [11] K4 against its plain version at the compact tier's shape
     mpc_c = largem_mpc(32, dev, torch.float32)
@@ -2213,6 +2291,11 @@ def main() -> int:
                               "iu_kernel")
     dev_k4 = kernel_device_ms(lambda: [ciu.phase1_ciu(*args4, sl04, Rw04, **kw4)
                                        for _ in range(5)], "ciu_kernel")
+    ms_ep = cuda_ms(lambda: run_epilogue(eng_iu, *ep_args), 10)
+    ms_ep_p = cuda_ms(lambda: eng_iu._rollout_epilogue_plain(*ep_args), 3, warmup=1)
+    dev_ep = kernel_device_ms(lambda: [run_epilogue(eng_iu, *ep_args) for _ in range(5)],
+                              "epilogue_kernel")
+    ep_bound = epilogue_bound(eng_iu, ep_args, run_epilogue(eng_iu, *ep_args))
     ms_iu = cuda_ms(lambda: eng_iu.solve_batch(th_iu_dev), 5)
     ms_c = cuda_ms(lambda: eng_c.solve_batch(th_c_dev), 5)
     t_rolls = {}
@@ -2244,6 +2327,9 @@ def main() -> int:
         f"bound {k3_bound[0]:.5f} ms ({k3_bound[1]})")
     log(f"    K4 {ms_k4:.4f} ms (device {fmt_ms(dev_k4)}) vs phase1_ciu_plain {ms_k4p:.4f} ms; "
         f"bound {k4_bound[0]:.5f} ms ({k4_bound[1]})")
+    log(f"    IU rollout epilogue (warm step, B={B_ROLL_IU}) {ms_ep:.4f} ms (device "
+        f"{fmt_ms(dev_ep)}) vs _rollout_epilogue_plain {ms_ep_p:.4f} ms; bound "
+        f"{ep_bound[0]:.5f} ms ({ep_bound[1]})")
     log(f"    IU tier {ms_iu:.4f} ms/batch = {B_LARGE / ms_iu * 1e3:,.0f} solves/s")
     log(f"    compact tier {ms_c:.4f} ms/batch = {B_LARGE / ms_c * 1e3:,.0f} solves/s")
     log(f"    IU rollout {B_ROLL_IU} x {N_ROLL_IU} in {t_rolls['iu']:.3f} s = "
@@ -2319,6 +2405,12 @@ def main() -> int:
          "launches": launches["ciu"], "launches_by_path": per_path("ciu"),
          "max_abs_err": k4_err, "ms": ms_k4, "device_ms": dev_k4, "plain_ms": ms_k4p,
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1], "library_ms": None},
+        {"name": "IU rollout epilogue", "route": "cuda",
+         "source": "linearmpc_tpu_torch/csrc/iu_epilogue.cu",
+         "replaces": "linearmpc_tpu/ops/engine.py:355-410 (left to XLA, no Pallas kernel)",
+         "launches": launches["iu_epilogue"], "launches_by_path": per_path("iu_epilogue"),
+         "max_abs_err": ep_err, "ms": ms_ep, "device_ms": dev_ep, "plain_ms": ms_ep_p,
+         "bound_ms": ep_bound[0], "bound_by": ep_bound[1], "library_ms": None},
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

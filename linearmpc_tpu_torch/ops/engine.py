@@ -562,13 +562,24 @@ class SolverEngine:
         """Warm-started IU step of the closed loop (engine.py:355-410): K3
         from the previous step's multipliers, working set and carried R,
         with the warm-ray retry; one Newton-Schulz pass on R; a short f64
-        Richardson. Returns (U f32, lam f32, act, side, iters, status, R)."""
+        Richardson. Returns (U f32, lam f32, act, side, iters, status, R).
+        On the card everything after K3 is one launch of ``iu_epilogue``;
+        on the CPU it is ``_rollout_epilogue_plain``."""
         arr = self.arrays
-        m = self.ldp.m
         with span("lmpc.iu.k3"):
             du_t, dl_t = self._bounds32(thetas)
             lam32, act, side, iters, done, infeas32, R = self._iu_phase1(
                 du_t, dl_t, lam0.to(torch.float32), act0 | arr.is_eq, side0, R0, retry=True)
+        epilogue = (self._rollout_epilogue_cuda if R.device.type == "cuda"
+                    else self._rollout_epilogue_plain)
+        U, lam, status, R = epilogue(thetas, act, side, done, infeas32, R)
+        return U, lam, act, side, iters, status, R
+
+    def _rollout_epilogue_plain(self, thetas, act, side, done, infeas32, R):
+        """Everything the warm IU step does after K3, in torch: (U f32, lam
+        f32, status, R)."""
+        arr = self.arrays
+        m = self.ldp.m
         # one Newton-Schulz pass keeps the carried inverse from drifting
         with span("lmpc.iu.newton_schulz"):
             actf = act.to(torch.float32)
@@ -584,7 +595,23 @@ class SolverEngine:
                                                 act, side, du_h, dl_h, REFINE_ROLL)
             U, _ = self._recover(th64, lam)
             status = self._status(infeas32, done & self._resolved(lam, rhs, actf64))
-        return U.float(), lam.float(), act, side, iters, status, R
+        return U.float(), lam.float(), status, R
+
+    def _rollout_epilogue_cuda(self, thetas, act, side, done, infeas32, R):
+        """The same on the card, one launch of ``iu_epilogue`` with the
+        statics it reads made once an engine."""
+        from . import iu_epilogue  # the rollout step alone loads the kernel
+
+        if getattr(self, "_epilogue_statics", None) is None:
+            arr, hi, m = self.arrays, self.arrays_hi, self.ldp.m
+            eye = torch.eye(m, dtype=torch.float32, device=self.device)
+            Gs = arr.G_solve + 4.0 * float(np.finfo(np.float32).eps) * eye
+            statics = (Gs, hi.G_solve, hi.Dth, hi.du, hi.dl, hi.u_off, hi.Uth_off, hi.HinvET)
+            self._epilogue_statics = tuple(t.contiguous() for t in statics)
+        count("iu.epilogue_lanes", thetas.shape[0])
+        with span("lmpc.iu.epilogue"):
+            return iu_epilogue.epilogue(*self._epilogue_statics, thetas, R, act, side, done,
+                                        infeas32, refine=REFINE_ROLL, res_tol=ROLL_RES)
 
     def _resolved(self, lam, rhs, actf):
         """Relative working-set residual within ROLL_RES (engine.py:400-408)."""
