@@ -14,9 +14,12 @@ counts as infinitely wrong.
   float32 search can tell (``f32_tie``); a worse assignment, or a binary
   row off its bounds, is infinitely wrong.
 * ``u_err`` and ``x_err`` (closed loop): at each checked step, from the
-  program's own state x_k (the reference follows the program step by
-  step), the control against the reference's control at x_k, and the next
-  state against F x_k + G u_k + f; at k = 0 the state against x_0.
+  program's own state x_k and its own applied control u_{k-1} (the
+  reference follows the program step by step; u_{-1} = 0, as the
+  rollout starts), the control against the reference's control at
+  theta_k = [x_k; r; u_{k-1}] (r the lane's reference; the parts the
+  QP's layout has), and the next state against F x_k + G u_k + f; at
+  k = 0 the state against x_0.
 """
 
 from __future__ import annotations
@@ -33,6 +36,16 @@ def _rel(a, b) -> float:
     if not np.all(np.isfinite(a)):
         return INF
     return float(np.abs(a - b).max() / (1.0 + np.abs(b).max()))
+
+
+def theta(qp, x, r=None, u_prev=None) -> np.ndarray:
+    """theta = [x; r; u_prev] in the QP's layout (``qp.nr``, ``qp.nu_prev``)."""
+    parts = [x]
+    if qp.nr:
+        parts.append(r)
+    if qp.nu_prev:
+        parts.append(u_prev)
+    return np.concatenate(parts)
 
 
 def f32_tie(qp, v, th) -> float:
@@ -113,10 +126,10 @@ class Judge:
         return _rel(U, v_alt)
 
 
-def judge_rollout(qp: ref.QP, plant: ref.Plant, x0, xs, us, status, steps):
+def judge_rollout(qp: ref.QP, plant: ref.Plant, x0, xs, us, status, steps, r=None):
     """(u_err, x_err, working-set sizes, rows added) of one closed-loop
     lane at the checked ``steps``; xs (N, nx) and us (N, nu) are the
-    program's states and controls, x0 the lane's start."""
+    program's states and controls, x0 the lane's start, r its reference."""
     solver = ref.Solver(qp)
     u_err = x_err = 0.0
     sizes, added = [], []
@@ -124,11 +137,13 @@ def judge_rollout(qp: ref.QP, plant: ref.Plant, x0, xs, us, status, steps):
     warm, prev = None, None
     for k in steps:
         x = np.asarray(xs[k], dtype=np.float64)
-        v, work, sides, _, st = solver.solve(x, warm=warm)
+        u_prev = np.asarray(us[k - 1] if k > 0 else np.zeros(plant.nu), dtype=np.float64)
+        th = theta(qp, x, r, u_prev)
+        v, work, sides, _, st = solver.solve(th, warm=warm)
         warm = (work, sides)
         if status[k] != 1 or st != 1:
             return INF, INF, sizes, added
-        u_ref = qp.Ux @ np.r_[v, x]
+        u_ref = qp.Ux @ np.r_[v, th]
         u_err = max(u_err, _rel(us[k], u_ref))
         if k + 1 < len(xs):
             x_next = plant.F @ x + plant.G @ np.asarray(us[k], dtype=np.float64) + plant.f_off
@@ -140,21 +155,24 @@ def judge_rollout(qp: ref.QP, plant: ref.Plant, x0, xs, us, status, steps):
     return u_err, x_err, sizes, added
 
 
-def control_rollout(qp: ref.QP, plant: ref.Plant, x0, N: int, dtype):
+def control_rollout(qp: ref.QP, plant: ref.Plant, x0, N: int, dtype, r=None):
     """The control in the program's place: the closed loop in ``dtype``
-    (bfloat16 below the program's float32 state). Returns (xs, us,
-    status)."""
+    (bfloat16 below the program's float32 state), tracking ``r`` and
+    carrying its own previous control. Returns (xs, us, status)."""
     s = ref.Solver(qp, dtype)
     q = s.q
     F, G, f = q(plant.F), q(plant.G), q(plant.f_off)
     Ux = q(qp.Ux)
     x = q(x0)
+    r = None if r is None else q(r)
+    u = q(np.zeros(plant.nu))
     xs, us, st = [], [], []
     warm = None
     for _ in range(N):
-        v, work, sides, _, status = s.solve(x, warm=warm)
+        th = theta(qp, x, r, u)
+        v, work, sides, _, status = s.solve(th, warm=warm)
         warm = (work, sides)
-        u = q(Ux @ q(np.r_[v, x]))
+        u = q(Ux @ q(np.r_[v, th]))
         xs.append(x.astype(np.float64))
         us.append(u.astype(np.float64))
         st.append(1)

@@ -82,6 +82,14 @@ def benchmark() -> dict:
     return load_json(ROOT / "BENCHMARK.json")
 
 
+def cpu_overrides(workload: str, control: bool = False) -> dict:
+    """The small sizes a cell's workload file gives for a run on the CPU
+    (the tests): its ``cpu`` entries, or for its control ``cpu_control``
+    where the file has one. A run on the card never reads them."""
+    spec = load_json(HERE / "workloads" / f"{workload}.json")
+    return spec.get("cpu_control", spec["cpu"]) if control else spec["cpu"]
+
+
 def cell_metrics(bench: dict, workload: str, section: str) -> list[dict]:
     """The metrics of ``section`` that the cell reports."""
     return [m for m in bench[section] if workload in m.get("workloads", [workload])]

@@ -12,16 +12,24 @@ controls, a depth-first branch-and-bound to the proven optimum.
 
 Semantics, as LinearMPC.jl states them (``src/mpc2mpqp.jl``):
 
-    min  sum_{k=1}^{N-1} |C x_k - r|_Q^2 + |C x_N - r|_Qf^2 + x_N' Qfx x_N
-         + sum_{k=0}^{N-1} |u_k - uo|_R^2                      (times 1/2)
-         + sum_{k=0}^{N-1} v_k' R K xt_k      (LinearMPC.jl's operating point)
+    min  sum_{k=1}^{Np-1} |C x_k - r|_Q^2 + |C x_Np - r|_Qf^2 + x_Np' Qfx x_Np
+         + sum_{k=0}^{Np-1} |u_k - uo|_R^2 + sum_{k=0}^{Np-1} |u_k - u_{k-1}|_Rr^2
+                                                                (times 1/2)
+         + sum_{k=0}^{Np-1} v_k' R K xt_k      (LinearMPC.jl's operating point)
     s.t. x_{k+1} = F x_k + G u_k + f_off,  u_k = v_k - K x_k,
          umin <= u_k <= umax,  u_k[b] in {umin[b], umax[b]} for binary b,
 
-over v = (v_0, ..., v_{N-1}) with N = Np = Nc, theta = [x_0; r]. The
-program's decision vector is this v (its ``U``); the first control is
-v_0 - K x_0. ``dtype`` float32 runs every step in float32: the control
-that the output comparison has to fail.
+over the free moves v = (v_0, ..., v_{Nc-1}); past the control horizon
+the input is held, u_k = u_{Nc-1} for Nc <= k < Np, so the bound rows are
+those of the Nc free moves. u_{-1} is the previous input u_prev, and
+theta = [x_0; r; u_prev]: r when the plant tracks a reference, u_prev
+exactly when Rr is not zero (the port's order, ``get_parameter_dims``).
+The program's decision vector is this v (its ``U``); the first control
+is v_0 - K x_0. ``condense`` refuses the combinations it does not
+implement: a control horizon shorter than Np, or an input-rate weight,
+together with prestabilization, the LQR terminal cost, an operating
+point uo or binary controls. ``dtype`` float32 runs every step in
+float32: the control that the output comparison has to fail.
 """
 
 from __future__ import annotations
@@ -45,16 +53,18 @@ class Plant:
     G: np.ndarray
     f_off: np.ndarray
     Np: int
-    Q: np.ndarray            # (ny, ny) output weight, stages 1..N-1 (and N unless Qfx)
-    R: np.ndarray            # (nu, nu)
+    Q: np.ndarray            # (ny, ny) output weight, stages 1..Np-1 (and Np unless Qfx)
+    R: np.ndarray            # (nu, nu), every stage 0..Np-1
     umin: np.ndarray
     umax: np.ndarray
     C: np.ndarray | None = None
     uo: np.ndarray | None = None
-    tracking: bool = True    # theta = [x; r] (else theta = x)
+    tracking: bool = True    # r in theta (else none)
     lqr_terminal: bool = False   # Qfx = the LQR cost, terminal Q dropped
     prestabilize: bool = False   # u = v - K x with the LQR gain K
     binaries: list = field(default_factory=list)
+    Nc: int | None = None    # control horizon (None: Np)
+    Rr: np.ndarray | None = None   # (nu, nu) input-rate weight; u_prev in theta when not zero
 
     @property
     def nx(self) -> int:
@@ -132,20 +142,43 @@ class QP:
     row_stage: np.ndarray   # the stage k of each row of A
     Ux: np.ndarray      # first control u_0 = Ux @ [v; th] (nu, n + nth)
     K: np.ndarray
+    nx: int             # theta = [x (nx); r (nr); u_prev (nu_prev)]
+    nr: int
+    nu_prev: int
+
+
+def _refuse(p: Plant, Nc: int, rate: bool):
+    """Raise on a plant whose QP ``condense`` does not implement."""
+    if not 1 <= Nc <= p.Np:
+        raise ValueError(f"control horizon Nc = {Nc} outside 1..Np = {p.Np}")
+    if Nc == p.Np and not rate:
+        return
+    what = "a control horizon shorter than Np" if Nc < p.Np else "an input-rate weight Rr"
+    for name, on in (("prestabilization", p.prestabilize), ("the LQR terminal cost", p.lqr_terminal),
+                     ("an operating point uo", p.uo is not None and np.any(p.uo)),
+                     ("binary controls", len(p.binaries) > 0)):
+        if on:
+            raise NotImplementedError(f"{what} together with {name}")
 
 
 def condense(p: Plant) -> QP:
     """The condensed QP of ``p`` by a forward recursion: each state and
     control is an affine map of z = [v; theta; 1]."""
     nx, nu, N = p.nx, p.nu, p.Np
+    Nc = N if p.Nc is None else int(p.Nc)
+    rate = p.Rr is not None and bool(np.any(p.Rr))
+    _refuse(p, Nc, rate)
     C = np.eye(nx) if p.C is None else p.C
     ny = C.shape[0]
     uo = np.zeros(nu) if p.uo is None else p.uo
-    nth = nx + (ny if p.tracking else 0)
-    n = N * nu
+    nr = ny if p.tracking else 0
+    nup = nu if rate else 0
+    nth = nx + nr + nup
+    n = Nc * nu
     nz = n + nth + 1
     Qx = C.T @ p.Q @ C
-    P, K = lqr(p.F, p.G, Qx, p.R)
+    if p.lqr_terminal or p.prestabilize:
+        P, K = lqr(p.F, p.G, Qx, p.R)
     if not p.prestabilize:
         K = np.zeros((nu, nx))
 
@@ -157,6 +190,10 @@ def condense(p: Plant) -> QP:
     X[:, n:n + nx] = np.eye(nx)
     one = np.zeros(nz)
     one[-1] = 1.0
+    # u_{k-1}, from u_{-1} = u_prev
+    U_last = np.zeros((nu, nz))
+    if rate:
+        U_last[:, n + nx + nr:n + nth] = np.eye(nu)
     Hz = np.zeros((nz, nz))
     rows = []
     Ux = None
@@ -171,14 +208,20 @@ def condense(p: Plant) -> QP:
             E = C @ X - Rsel
             Hz += E.T @ p.Q @ E
         U = -K @ X
-        U[:, k * nu:(k + 1) * nu] += np.eye(nu)
+        j = min(k, Nc - 1)     # the input is held past the control horizon
+        U[:, j * nu:(j + 1) * nu] += np.eye(nu)
         if k == 0:
             Ux = U[:, :-1].copy()
         D = U - np.outer(uo, one)
         Hz += D.T @ p.R @ D
-        f_uo[k * nu:(k + 1) * nu] = p.R @ K @ xt
+        if rate:
+            dU = U - U_last
+            Hz += dU.T @ p.Rr @ dU
+            U_last = U
+        if k < Nc:
+            f_uo[k * nu:(k + 1) * nu] = p.R @ K @ xt
+            rows.append(U)
         xt = (p.F - p.G @ K) @ xt + p.G @ uo
-        rows.append(U)
         X = p.F @ X + p.G @ U + np.outer(p.f_off, one)
     if p.lqr_terminal:
         Hz += X.T @ P @ X
@@ -187,7 +230,7 @@ def condense(p: Plant) -> QP:
         Hz += E.T @ p.Q @ E
     Hz = (Hz + Hz.T) / 2
 
-    # bound rows: every finite input bound of every stage
+    # bound rows: every finite input bound of every free move
     A, lo0, hi0, Lth, bins, stage = [], [], [], [], [], []
     binset = set(int(b) for b in p.binaries)
     for k, U in enumerate(rows):
@@ -206,7 +249,7 @@ def condense(p: Plant) -> QP:
     return QP(H=Hz[:n, :n], f0=Hz[:n, -1] + f_uo, Fth=Hz[:n, n:n + nth], A=np.array(A),
               lo0=np.array(lo0), hi0=np.array(hi0), Lth=np.array(Lth),
               bin_rows=np.array(bins, dtype=int), row_stage=np.array(stage, dtype=int),
-              Ux=Ux, K=K)
+              Ux=Ux, K=K, nx=nx, nr=nr, nu_prev=nup)
 
 
 def objective(qp: QP, v: np.ndarray, th: np.ndarray) -> float:

@@ -7,6 +7,7 @@ Run: ``python -m pytest mpcbench/tests -q`` (the card's cases:
 from __future__ import annotations
 
 import ast
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,8 +41,9 @@ def config(name):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_config_builds_the_published_example(name):
     """The benchmark's plant, through the port's public API, condenses to
-    the port's own example: m, n_theta, the route on the card, and the
-    mpQP's matrices to round-off."""
+    the port's own example: m, n_theta, the route on the card (the one
+    that the config file's ``route`` names first), and the mpQP's
+    matrices to round-off."""
     cfg, mod = config(name)
     mine = mod.program(L, cfg, mod.plant(cfg)).setup(device="cpu")
     theirs = mpc_example(name).mpc.setup(device="cpu")
@@ -57,7 +59,7 @@ def test_config_builds_the_published_example(name):
                  binaries=a.has_binaries, lexicographic=False)
     assert path == route("cuda", torch.float32, theirs.engine.ldp.m, symmetric=b.is_symmetric,
                          binaries=b.has_binaries, lexicographic=False)
-    assert path[0] == ("hybrid" if a.has_binaries else "iu")
+    assert path[0] == cfg["route"].split()[0]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -88,11 +90,11 @@ def test_benchmark_file_keys():
             assert m["unit"] == "%"
 
 
-@pytest.mark.parametrize("name,lanes", [("crazyflie", 4), ("satellite", 2)])
-def test_reference_agrees_with_the_port_in_float64(name, lanes):
+@pytest.mark.parametrize("name", CONFIGS)
+def test_reference_agrees_with_the_port_in_float64(name):
     """The plain reference's optimum against the port's CPU float64 path
-    (the satellite: the port's float64 frontier against the reference's
-    own branch-and-bound)."""
+    on 4 lanes (2 with binaries: the port's float64 frontier against the
+    reference's own branch-and-bound)."""
     cfg, mod = config(name)
     p = mod.plant(cfg)
     mpc = mod.program(L, cfg, p).setup(device="cpu")
@@ -100,12 +102,109 @@ def test_reference_agrees_with_the_port_in_float64(name, lanes):
     solver = ref.Solver(qp)
     lo, hi = mod.theta_box(cfg)
     rng = np.random.default_rng(3)
-    for _ in range(lanes):
+    for _ in range(2 if len(qp.bin_rows) else 4):
         th = lo + (hi - lo) * rng.uniform(size=len(lo))
         U, _, status, _ = mpc.solve(th)
         v = ref.branch_and_bound(solver, th).v if len(qp.bin_rows) else solver.solve(th)[0]
         assert status == 1
         assert np.abs(U - v).max() <= 1e-9 * (1 + np.abs(v).max())
+
+
+def _invpend(Np, Nc, tracking):
+    """invpend's plant from the port's own example (its F, G and C) at
+    LinearMPC.jl's weights: Q = diag(1.2^2, 1), R = 0, Rr = 1, |u| <= 2;
+    and the port's controller of it."""
+    mpc = mpc_example("invpend", Np, Nc).mpc
+    mpc.settings.reference_tracking = tracking
+    md = mpc.model
+    p = ref.Plant(F=md.F, G=md.G, f_off=np.zeros(md.nx), Np=Np, Nc=Nc, C=md.C,
+                  Q=np.diag([1.2 ** 2, 1.0]), R=np.zeros((1, 1)), Rr=np.ones((1, 1)),
+                  umin=np.array([-2.0]), umax=np.array([2.0]), tracking=tracking)
+    return p, mpc.setup(device="cpu")
+
+
+@pytest.mark.parametrize("Np,Nc,tracking", [(50, 5, True), (50, 5, False), (12, 12, True)],
+                         ids=["published", "no-reference", "Nc=Np"])
+def test_reference_agrees_with_the_port_on_invpend(Np, Nc, tracking):
+    """A control horizon shorter than the prediction horizon, the
+    input-rate weight with u_prev in theta, and R = 0: the reference's
+    optimum against the port's float64 ``mpc.solve`` on 12 seeded theta
+    over the example's range (x, r in +-20; u_prev in +-2), to 1e-9
+    relative; theta's layout is the port's."""
+    p, mpc = _invpend(Np, Nc, tracking)
+    qp = ref.condense(p)
+    nx, nr, _, nuprev, _ = mpc.get_parameter_dims()
+    assert (qp.nx, qp.nr, qp.nu_prev) == (nx, nr, nuprev) == (4, 2 if tracking else 0, 1)
+    assert qp.H.shape == (Nc, Nc) and qp.A.shape[0] == Nc == mpc.engine.ldp.m
+    solver = ref.Solver(qp)
+    rng = np.random.default_rng(11)
+    for _ in range(12):
+        th = np.r_[rng.uniform(-20, 20, nx + nr), rng.uniform(-2, 2, nuprev)]
+        U, _, status, _ = mpc.solve(th)
+        v, _, _, _, st = solver.solve(th)
+        assert status == 1 and st == 1
+        assert np.abs(U - v).max() <= 1e-9 * (1 + np.abs(v).max())
+
+
+# entries and norms of the crazyflie and satellite QPs as the reference
+# built them before it learnt Nc < Np and Rr
+_PINNED = {
+    "crazyflie": {("H", 0, 0): 60.55645790862113, ("H", -1, -1): 60.556457908621134,
+                  ("f0", 0): -29.59490158082773, ("f0", -1): -25.891035246352764,
+                  ("Lth", 0, 0): -0.7452997102235688, ("lo0", -1): -0.07407732668949912,
+                  ("Ux", -1, -1): -0.5180356295824048, ("K", 0, 0): -0.7452997102235688,
+                  "H": 387.9419434849246, "f0": 175.49191210274353, "A": 6.547645980569189,
+                  "Lth": 18.709885518916387, "Ux": 8.570207812974628, "K": 8.33357438063472},
+    "satellite": {("H", 0, 0): 8340.1375, ("H", -1, -1): 10.1251, ("H", 1, 5): 1232.6268999999998,
+                  ("Fth", 2, 1): 13825.02, ("lo0", -1): -1.0, ("hi0", 0): 1.0,
+                  "H": 58853.10325453882, "Fth": 125098.62824985776, "A": 6.324555320336759,
+                  "Ux": 1.7320508075688772},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PINNED))
+def test_reference_qp_is_unchanged_at_full_horizon(name):
+    """With Nc = Np and no Rr the QP is the one the reference built before
+    it learnt either, to 1e-14 relative: a few entries and the norms."""
+    cfg, mod = config(name)
+    qp = ref.condense(mod.plant(cfg))
+    assert (qp.nx, qp.nu_prev) == (cfg["sizes"]["nx"], 0)
+    for key, want in _PINNED[name].items():
+        if isinstance(key, tuple):
+            got, scale = getattr(qp, key[0])[key[1:]], np.linalg.norm(getattr(qp, key[0]))
+        else:
+            got = scale = np.linalg.norm(getattr(qp, key))
+        assert abs(got - want) <= 1e-14 * abs(scale), (key, got, want)
+
+
+# what ``condense`` refuses: (plant, the changes, the reason it names)
+_REFUSED = {
+    "Nc<Np prestabilized": ("crazyflie", dict(Nc=3, lqr_terminal=False, uo=None), "prestabilization"),
+    "Nc<Np LQR terminal": ("crazyflie", dict(Nc=3, prestabilize=False, uo=None), "LQR terminal"),
+    "Nc<Np uo": ("crazyflie", dict(Nc=3, prestabilize=False, lqr_terminal=False), "operating point"),
+    "Nc<Np binaries": ("satellite", dict(Nc=3), "binary"),
+    "Rr prestabilized": ("crazyflie", dict(Rr=np.eye(4), lqr_terminal=False, uo=None), "prestabilization"),
+    "Rr LQR terminal": ("crazyflie", dict(Rr=np.eye(4), prestabilize=False, uo=None), "LQR terminal"),
+    "Rr uo": ("crazyflie", dict(Rr=np.eye(4), prestabilize=False, lqr_terminal=False), "operating point"),
+    "Rr binaries": ("satellite", dict(Rr=np.eye(3)), "binary"),
+    "invpend prestabilized": ("invpend", dict(prestabilize=True, R=np.eye(1)), "prestabilization"),
+    "Nc = 0": ("invpend", dict(Nc=0), "outside"),
+    "Nc > Np": ("invpend", dict(Nc=11), "outside"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_REFUSED))
+def test_reference_refuses_what_it_does_not_implement(case):
+    """A combination that ``condense`` does not implement raises, naming
+    it, and returns no QP."""
+    name, changes, reason = _REFUSED[case]
+    if name == "invpend":
+        p = _invpend(10, 3, True)[0]
+    else:
+        cfg, mod = config(name)
+        p = mod.plant(cfg)
+    with pytest.raises((NotImplementedError, ValueError), match=reason):
+        ref.condense(dataclasses.replace(p, **changes))
 
 
 def test_float32_reference_is_off_by_more_than_the_limit():

@@ -1,7 +1,13 @@
 """The harness on the CPU at small sizes: a run of each cell comes out
 correct, its control and each fault the cell can have come out not
-correct, a cell or a per-layer metric added as files alone is found, and
-no run loads JAX or the JAX package."""
+correct, a cell, a per-layer metric or a configuration that tracks a
+reference added as files alone is found and checked, and no run loads
+JAX or the JAX package.
+
+Each cell's CPU sizes are its workload file's ``cpu`` entries, and its
+control's ``cpu_control`` where the file has one (satellite-single: its
+float32 control reads 6.6e-7 against the 1e-6 limit at Np = 6, so the
+control runs the published horizon)."""
 
 from __future__ import annotations
 
@@ -16,36 +22,27 @@ import numpy as np
 import pytest
 import torch
 
-ROOT = Path(__file__).resolve().parents[2]
+HERE = Path(__file__).resolve().parent
+ROOT = HERE.parents[1]
 sys.path.insert(0, str(ROOT))
 
 import linearmpc_tpu_torch as L  # noqa: E402
 from linearmpc_tpu_torch.ops import engine as eng  # noqa: E402
 from mpcbench import harness  # noqa: E402
 
-# small cells the CPU holds; the satellite at Np = Nc = 6 (12 binary rows)
-SMALL = {
-    "crazyflie-sweep": {"params": {"batch": 32}, "trace_units": 2, "check": {"lanes": 8}},
-    "satellite-batch": {"params": {"batch": 4}, "trace_units": 1, "check": {"lanes": 4},
-                        "cfg": {"Np": 6, "Nc": 6}},
-    "crazyflie-closedloop": {"params": {"lanes": 8, "steps": 12, "warmup_steps": 12}, "trace_units": 1,
-                             "check": {"lanes": 2}},
-    "satellite-single": {"trace_units": 2, "check": {"lanes": 4}, "cfg": {"Np": 6, "Nc": 6}},
-}
-# the float32 control of a single solve reads below the limit at Np = 6
-# (6.6e-7 against 1e-6): its test runs the published horizon
-CONTROL = {"satellite-single": {"params": {"warmup_units": 1}, "trace_units": 1,
-                                "check": {"lanes": 2}}}
+BENCHMARK = json.loads((ROOT / "BENCHMARK.json").read_text())
+CELLS = [w["name"] for w in BENCHMARK["workloads"]]
+SMALL = {cell: harness.cpu_overrides(cell) for cell in CELLS}
 SEED = 4294967311  # above 32 bits
 
 
 def small(cell, control=False, **kw):
-    ov = json.loads(json.dumps(CONTROL.get(cell, SMALL[cell]) if control else SMALL[cell]))
     kw["control"] = control
-    return harness.run_cell(cell, SEED, 0.5, False, device="cpu", overrides=ov, **kw)
+    return harness.run_cell(cell, SEED, 0.5, False, device="cpu",
+                            overrides=harness.cpu_overrides(cell, control), **kw)
 
 
-@pytest.mark.parametrize("cell", sorted(SMALL))
+@pytest.mark.parametrize("cell", CELLS)
 def test_cell_runs_correct_and_its_control_does_not(cell):
     ok = small(cell)
     assert ok["correct"], ok["checked"]
@@ -57,8 +54,8 @@ def test_cell_runs_correct_and_its_control_does_not(cell):
 
 
 def test_traced_run_reports_per_layer_metrics_it_can_read():
-    ov = json.loads(json.dumps(SMALL["crazyflie-sweep"]))
-    r = harness.run_cell("crazyflie-sweep", SEED, 0.5, True, device="cpu", overrides=ov)
+    r = harness.run_cell("crazyflie-sweep", SEED, 0.5, True, device="cpu",
+                         overrides=harness.cpu_overrides("crazyflie-sweep"))
     assert r["correct"]
     # no device on the CPU: the device readers find nothing and stay silent
     assert all(m in ("launches_per_batch.sweep",) for m in r["metrics"]) or not r["metrics"]
@@ -126,8 +123,11 @@ def test_single_solve_fault_fails(monkeypatch):
     assert not small("satellite-single")["correct"]
 
 
-def _copy_with(tmp_path, extra_workload=None, extra_layer=None):
-    """A checkout of the benchmark with the program linked in, plus files."""
+def _copy_with(tmp_path, extra_workload=None, extra_layer=None, files=None, cells=()):
+    """A checkout of the benchmark with the program linked in, plus files:
+    ``files``, a tree merged into its ``mpcbench/``, whose configurations
+    and the workloads named in ``cells`` ((cell, end-to-end metric) pairs)
+    are entered in its ``BENCHMARK.json``."""
     root = tmp_path / "checkout"
     root.mkdir()
     shutil.copytree(ROOT / "mpcbench", root / "mpcbench",
@@ -135,6 +135,18 @@ def _copy_with(tmp_path, extra_workload=None, extra_layer=None):
     shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
     os.symlink(ROOT / "linearmpc_tpu_torch", root / "linearmpc_tpu_torch")
     bench = json.loads((root / "BENCHMARK.json").read_text())
+    if files:
+        shutil.copytree(files, root / "mpcbench", dirs_exist_ok=True)
+        for f in sorted((Path(files) / "configs").glob("*.json")):
+            cfg = json.loads(f.read_text())
+            bench["configs"].append({"name": f.stem, "source": cfg["source"],
+                                     "file": f"mpcbench/configs/{f.name}",
+                                     "reduced": cfg["reduced"], "why": cfg["deployment"]})
+    for name, metric in cells:
+        spec = json.loads((root / "mpcbench" / "workloads" / f"{name}.json").read_text())
+        bench["workloads"].append({"name": name, "config": spec["config"], "traffic": spec["driver"],
+                                   "chips": spec["chips"], "why": spec["why"]})
+        next(m for m in bench["end_to_end"] if m["name"] == metric)["workloads"].append(name)
     if extra_workload:
         name, spec = extra_workload
         (root / "mpcbench" / "workloads" / f"{name}.json").write_text(json.dumps(spec))
@@ -174,6 +186,76 @@ def test_new_cell_and_metric_are_files_only(tmp_path):
     r = _run_in(root, code)
     assert r["a"]["correct"] and "solves_per_s" in r["a"]["metrics"]
     assert r["b"]["metrics"]["units_run.tiny"]["value"] == 2.0
+    assert r["bad"] == []
+
+
+# planted in a run of the files-only test below: the closed loop solves each
+# step at u_{k-2} (theta's last entry is u_prev), and each lane tracks its
+# neighbour's reference
+_TRACKING_RUNS = r"""
+import json, sys
+import numpy as np
+import linearmpc_tpu_torch as L
+from linearmpc_tpu_torch.ops import engine as eng
+from mpcbench import harness
+
+
+def run(cell, control=False):
+    return harness.run_cell(cell, int(sys.argv[1]), 0.3, False, device="cpu", control=control,
+                            overrides=harness.cpu_overrides(cell, control))
+
+
+out = {c: [run(c), run(c, control=True)] for c in ("invpend-sweep", "invpend-closedloop")}
+step, held = eng.SolverEngine.fused_rollout_solve, {}
+
+
+def late(self, theta, *a):
+    th = theta.clone()
+    th[:, -1:] = held.get("u", 0.0)
+    held["u"] = theta[:, -1:].clone()
+    return step(self, th, *a)
+
+
+eng.SolverEngine.fused_rollout_solve = late
+out["u_prev_late"] = run("invpend-closedloop")
+eng.SolverEngine.fused_rollout_solve = step
+build = L.build_rollout
+
+
+def neighbours_r(mpc, **kw):
+    roll = build(mpc, **kw)
+    return lambda x0s, rs=None, ds=None, ps=None, N=100: roll(x0s, np.roll(rs, 1, axis=0), ds, ps, N=N)
+
+
+L.build_rollout = neighbours_r
+out["wrong_lane_r"] = run("invpend-closedloop")
+out["bad"] = harness.forbidden_modules()
+print(json.dumps(out))
+"""
+
+
+def test_tracking_config_and_cells_are_files_only(tmp_path):
+    """A configuration with Nc < Np, an input-rate weight, R = 0 and a
+    tracked reference (invpend, ``tests/files_only/``), a sweep cell and a
+    closed-loop cell, added as new files alone: both run correct on the
+    CPU, their controls do not, and neither does the closed loop with
+    u_prev one step late or with another lane's reference."""
+    root = _copy_with(tmp_path, files=HERE / "files_only",
+                      cells=[("invpend-sweep", "solves_per_s"),
+                             ("invpend-closedloop", "control_steps_per_s")])
+    (root / "run_tracking.py").write_text(_TRACKING_RUNS)
+    out = subprocess.run([sys.executable, "run_tracking.py", str(SEED)], cwd=root,
+                         capture_output=True, text=True, timeout=600,
+                         env=dict(os.environ, PYTHONPATH=str(root)))
+    assert out.returncode == 0, out.stderr[-3000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    for cell, metric in (("invpend-sweep", "solves_per_s"), ("invpend-closedloop", "control_steps_per_s")):
+        ok, ctl = r[cell]
+        assert ok["correct"] and ok["failed"] == 0, (cell, ok["checked"])
+        assert set(ok["metrics"]) == {metric, "setup_s"}
+        assert not ctl["correct"], (cell, ctl["checked"])
+    for fault in ("u_prev_late", "wrong_lane_r"):
+        assert not r[fault]["correct"], (fault, r[fault]["checked"])
     assert r["bad"] == []
 
 
