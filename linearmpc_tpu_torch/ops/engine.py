@@ -425,6 +425,19 @@ class SolverEngine:
         return torch.unique(torch.cat([idx_a[top_a > FIX_TOL], idx_b]))
 
     # -- the small-m tier ---------------------------------------------------
+    def _small_k1(self, thetas, lam0, act0, side0):
+        """The float32 bounds and K1 from the entry state, counted: B lanes
+        and K1's iterations (held, summed after the session)."""
+        arr = self.arrays
+        count("small.lanes", thetas.shape[0])
+        with span("lmpc.small.k1"):
+            du_t, dl_t = self._bounds32(thetas)
+            out = bulk.phase1(
+                arr.subset_inv, arr.G, du_t, dl_t, self._eq, self._immut, lam0, act0, side0,
+                max_iter=self.bulk_cap, primal_tol=self.primal_tol, sign_tol=self.sign_tol)
+        count("small.k1_iters", lambda it=out[3]: it.sum())
+        return out
+
     def _tier_batch(self, thetas, warm=None) -> Solution:
         arr, hi = self.arrays, self.arrays_hi
         B, m = thetas.shape[0], self.ldp.m
@@ -435,31 +448,32 @@ class SolverEngine:
         else:
             lam0, act0, side0 = (torch.as_tensor(w, device=self.device).contiguous()
                                  for w in warm)
-        du_t, dl_t = self._bounds32(thetas)
-        lam, act, side, iters, _done = bulk.phase1(
-            arr.subset_inv, arr.G, du_t, dl_t, self._eq, self._immut,
-            lam0.to(torch.float32), act0.to(torch.bool), side0.to(torch.bool),
-            max_iter=self.bulk_cap, primal_tol=self.primal_tol, sign_tol=self.sign_tol)
+        lam, act, side, iters, _done = self._small_k1(
+            thetas, lam0.to(torch.float32), act0.to(torch.bool), side0.to(torch.bool))
         # tier 1: float64 re-solve of each lane's final working set
-        U, lam_p, fval, bad = polish.polish(self._pd, thetas, act, side)
+        with span("lmpc.small.polish"):
+            U, lam_p, fval, bad = polish.polish(self._pd, thetas, act, side)
         # tier 2: the worst lanes by KKT residual go through the float64
         # continuation; only those above FIX_TOL take its result
-        bad_top, idx = torch.topk(bad, min(STRAGGLER_K, B))
-        fix = finish_from_state(hi, thetas[idx], lam[idx], act[idx], side[idx], iters[idx],
-                                max_iter=STRAGGLER_ITERS, use_cholesky=self.symmetric)
-        needs_fix = bad_top > FIX_TOL
+        with span("lmpc.small.stragglers"):
+            bad_top, idx = torch.topk(bad, min(STRAGGLER_K, B))
+            fix = finish_from_state(hi, thetas[idx], lam[idx], act[idx], side[idx], iters[idx],
+                                    max_iter=STRAGGLER_ITERS, use_cholesky=self.symmetric)
+            needs_fix = bad_top > FIX_TOL
 
-        def merge(base, upd):
-            sel = needs_fix.reshape((-1,) + (1,) * (upd.dim() - 1))
-            out = base.clone()
-            out[idx] = torch.where(sel, upd, base[idx])
-            return out
+            def merge(base, upd):
+                sel = needs_fix.reshape((-1,) + (1,) * (upd.dim() - 1))
+                out = base.clone()
+                out[idx] = torch.where(sel, upd, base[idx])
+                return out
 
-        one = torch.ones_like(iters)
-        status = torch.where(bad <= FIX_TOL, one, -one)
-        return Solution(merge(U, fix.U), merge(lam_p, fix.lam), merge(act, fix.active),
-                        merge(side, fix.side), merge(fval, fix.fval),
-                        merge(iters, fix.iters), merge(status, fix.status))
+            one = torch.ones_like(iters)
+            status = torch.where(bad <= FIX_TOL, one, -one)
+            sol = Solution(merge(U, fix.U), merge(lam_p, fix.lam), merge(act, fix.active),
+                           merge(side, fix.side), merge(fval, fix.fval),
+                           merge(iters, fix.iters), merge(status, fix.status))
+        count("small.stragglers_fixed", lambda nf=needs_fix: nf.sum())
+        return sol
 
     @full_f32()
     def fused_rollout_solve(self, thetas, lam0, act0, side0):
@@ -468,15 +482,12 @@ class SolverEngine:
         Returns (U, lam, act, side, iters, status) with float64 U and lam;
         status is 1 where the lane converged and its residual is at most
         ``ROLLOUT_TOL``."""
-        arr = self.arrays
-        du_t, dl_t = self._bounds32(thetas)
-        lam, act, side, iters, done = bulk.phase1(
-            arr.subset_inv, arr.G, du_t, dl_t, self._eq, self._immut,
-            lam0.to(torch.float32), act0 | arr.is_eq, side0,
-            max_iter=self.bulk_cap, primal_tol=self.primal_tol, sign_tol=self.sign_tol)
-        U, lam_p, _fval, bad = polish.polish(self._pd, thetas.to(torch.float64), act, side)
-        one = torch.ones_like(iters)
-        status = torch.where(done & (bad <= ROLLOUT_TOL), one, -one)
+        lam, act, side, iters, done = self._small_k1(
+            thetas, lam0.to(torch.float32), act0 | self.arrays.is_eq, side0)
+        with span("lmpc.small.polish"):
+            U, lam_p, _fval, bad = polish.polish(self._pd, thetas.to(torch.float64), act, side)
+            one = torch.ones_like(iters)
+            status = torch.where(done & (bad <= ROLLOUT_TOL), one, -one)
         return U, lam_p, act, side, iters, status
 
     # -- the IU tier (m up to ~52) -------------------------------------------
