@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA GPU:
 It builds the hand-written kernels (K1 ``csrc/bulk.cu``, K2
 ``csrc/polish.cu``, K3 ``csrc/iu.cu`` and its search entry
 ``csrc/inc_search.cu``, K4 ``csrc/ciu.cu``, the IU rollout step's epilogue
-``csrc/iu_epilogue.cu``) from the sources, one nvcc each in parallel, holds each against its plain torch version on the card,
+``csrc/iu_epilogue.cu``, the gather and merge of the small-m warm step's
+float64 finish ``csrc/roll_finish.cu``) from the sources, one nvcc each in parallel, holds each against its plain torch version on the card,
 and drives the port's three solve paths through the entry points a user
 calls, with the launch counts set to 0 just before each path and read just
 after:
@@ -28,9 +29,11 @@ wide-team paths (K3 f64 at m=160 with R in global memory, K4 f64 at s=96)
 [15]; replays, compares and times the K3/K4 launches the paths make
 (cold, the second chance, one warm rollout step of each tier) [16]; and
 does the same for the K1/K2 launches of the small-m path (the cold tier's
-K1, f64 stragglers and K2; a warm rollout step's K1 and K2), then runs one
-rollout step under ``torch.cuda.set_sync_debug_mode("error")`` and counts
-the syncs of one cold batch [17]. Then the two paths of hybrid and
+K1, f64 stragglers and K2; a warm rollout step's K1 and K2) and for the
+finish's gather and merge on a warm step of invpend-montecarlo's 2,097,152
+lanes with every 4096th lane forced to fail, then runs one rollout step
+under ``torch.cuda.set_sync_debug_mode("error")`` and counts the syncs of
+one cold batch [17]. Then the two paths of hybrid and
 prioritized MPC, each with the counts set to 0 just before its run:
 
 * hybrid (the satellite at its reference default, m = 60, 40 binary rows,
@@ -122,11 +125,11 @@ import numpy as np
 import torch
 
 import linearmpc_tpu_torch as L
-from linearmpc_tpu_torch.ops import bulk, ciu, cuda_lib, iu, iu_epilogue, polish
+from linearmpc_tpu_torch.ops import bulk, ciu, cuda_lib, iu, iu_epilogue, polish, roll_finish
 from linearmpc_tpu_torch import profiling
 from linearmpc_tpu_torch.native_runtime import NativeBatchSolver
-from linearmpc_tpu_torch.ops.dual_active_set import solve_single
-from linearmpc_tpu_torch.ops.engine import REFINE_ROLL, ROLL_RES
+from linearmpc_tpu_torch.ops.dual_active_set import continue_from_state, solve_single
+from linearmpc_tpu_torch.ops.engine import REFINE_ROLL, ROLL_RES, ROLLOUT_TOL, STRAGGLER_ITERS
 from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
 # the bound of a kernel (its bytes at HBM3's rate, its operations at the
 # card's highest rate for their type): one definition with the port's models
@@ -136,6 +139,9 @@ from linearmpc_tpu_torch.profiling import (bound, gi_bound, k1_bound, k2_bound, 
 GOLDEN_U = 1.7612519326
 B_COLD = 32768              # cold stream batch (bench.py:90)
 B_ROLL, N_ROLL = 4096, 500  # closed-loop rollout (bench.py:215)
+# the finish's gather and merge at invpend-montecarlo's lanes, every
+# FINISH_EVERY-th lane forced to fail (512 lanes for the 256 slots)
+B_FINISH, FINISH_EVERY = 2 ** 21, 4096
 N_ORACLE = 256              # lanes held against the NumPy f64 oracle
 # K1/K2 checks at team sizes of 8 (m = 5, 6) and 16 threads (m = 10); the
 # card tests (tests/test_torch_gpu.py) take m = 4 (4 threads) and 8-9 too
@@ -156,9 +162,10 @@ B_CONTACT, CONTACT_REF, B_BENCH_CONTACT = 16, 4, 4
 B_LP = 1024                 # LP oracle lanes (tests/test_lp_oracle.py's generator)
 B_EVAL = 32768              # explicit point-location batch
 CERT_SAMPLE = 8             # every 8th IPM call of [27] replayed under the profiler
-KERNELS = ("bulk", "polish", "iu", "ciu", "inc_search", "iu_epilogue")
-# each module's LAUNCHES
-COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu, iu_epilogue=iu_epilogue)
+KERNELS = ("bulk", "polish", "iu", "ciu", "inc_search", "iu_epilogue", "roll_finish")
+# each module's LAUNCHES (roll_finish's: the gather's and the merge's)
+COUNTED = dict(bulk=bulk, polish=polish, iu=iu, ciu=ciu, iu_epilogue=iu_epilogue,
+               roll_finish=roll_finish)
 PATHS = ("small", "iu", "compact", "hybrid", "lex", "contact", "single", "exact", "nonsym",
          "export", "overlap")
 # the discrete outputs of K3 / K4 compared lane by lane (index in the returns)
@@ -283,10 +290,12 @@ def reset_counts():
         mod.LAUNCHES = 0
     iu.STEP_LAUNCHES = 0
     iu.SEARCH_LAUNCHES = 0
+    roll_finish.MERGE_LAUNCHES = 0
 
 
 def read_counts() -> dict:
-    return {k: mod.LAUNCHES for k, mod in COUNTED.items()}
+    return {**{k: mod.LAUNCHES for k, mod in COUNTED.items()},
+            "roll_finish_merge": roll_finish.MERGE_LAUNCHES}
 
 
 def kernel_device_ms(fn, name: str, window_s: float = 0.05):
@@ -672,8 +681,11 @@ def small_launches(mpc, th_dev, x0s, rs) -> dict:
     k2 = []
     k1 = record_calls(bulk, "phase1", lambda: k2.extend(record_calls(
         polish, "polish", lambda: L.build_rollout(mpc)(x0s, rs, None, N=11))))
-    out[f"K1 warm rollout step B={k1[10][0][2].shape[0]}"] = (bulk.phase1, *k1[10])
-    out[f"K2 warm rollout step B={k2[10][0][2].shape[0]}"] = (polish.polish, *k2[10])
+    # each step's float64 finish launches K1 and K2 again, on its slots
+    B = len(x0s)
+    k1, k2 = ([c for c in calls if c[0][2].shape[0] == B] for calls in (k1, k2))
+    out[f"K1 warm rollout step B={B}"] = (bulk.phase1, *k1[10])
+    out[f"K2 warm rollout step B={B}"] = (polish.polish, *k2[10])
     return out
 
 
@@ -702,6 +714,76 @@ def replay_small(launches: dict) -> dict:
             f"bound {b_ms:.5f} ms ({b_by})")
         rows.setdefault("K1" if k1 else "K2", {})[label] = dict(
             ms=ms, device_ms=dev_ms, plain_ms=ms_p, bound_ms=b_ms, bound_by=b_by)
+    return rows
+
+
+def roll_finish_phase(mpc) -> dict:
+    """The float64 finish's gather and merge (``csrc/roll_finish.cu``) on
+    the inputs of a warm rollout step at invpend-montecarlo's lanes
+    (``B_FINISH``, x0 and r in +-1), every ``FINISH_EVERY``-th lane forced to
+    fail: each kernel against its plain version, bit for bit (the gather
+    takes the first 256 of the 512 failing lanes; the merge, fed the
+    continuation of those slots, writes exactly their lanes), then its call,
+    device and plain time and its bound (its bytes at HBM3's rate); returns
+    the numbers by kernel."""
+    eng = mpc.engine
+    rng = np.random.default_rng(21)
+    x0 = rng.uniform(-1.0, 1.0, (B_FINISH, 4)).astype(np.float32)
+    r = rng.uniform(-1.0, 1.0, (B_FINISH, 2)).astype(np.float32)
+    merges = []
+    gathers = record_calls(roll_finish, "gather", lambda: merges.extend(record_calls(
+        roll_finish, "merge", lambda: L.build_rollout(mpc)(x0, r, None, N=2))))
+    ok, K, th64, lam, act, side, iters = gathers[1][0]  # the warm step's
+    base = merges[1][0][9:]
+    ok = ok.clone()
+    ok[::FINISH_EVERY] = False
+    g_in = (ok, K, th64, lam, act, side, iters)
+    out_k = roll_finish.gather(*g_in)
+    out_p = roll_finish.gather_plain(*g_in)
+    torch.cuda.synchronize()
+    g_bad = sum(not torch.equal(a, b) for a, b in zip(out_k, out_p))
+    failing = torch.nonzero(~ok).squeeze(1)
+    check(g_bad == 0 and bool(out_k[1].all()) and torch.equal(out_k[0], failing[:K]),
+          f"finish gather: {g_bad} of its outputs differ from gather_plain, or it took other "
+          f"than the first {K} of {len(failing)} failing lanes")
+    idx, take, th_k, lam_k, act_k, side_k, iters_k = out_k
+    fin = continue_from_state(eng.arrays_hi, th_k, lam_k, act_k, side_k, iters_k,
+                              max_iter=STRAGGLER_ITERS)
+    U_f, lam_f, _fval, bad_f = polish.polish(eng._pd, th_k, fin.active, fin.side)
+    upd = (idx, take, U_f, lam_f, fin.active, fin.side, fin.iters, fin.done, bad_f)
+    into_k, into_p = [t.clone() for t in base], [t.clone() for t in base]
+    roll_finish.merge(*upd, *into_k, tol=ROLLOUT_TOL)
+    roll_finish.merge_plain(*upd, *into_p, tol=ROLLOUT_TOL)
+    torch.cuda.synchronize()
+    m_bad = sum(not torch.equal(a, b) for a, b in zip(into_k, into_p))
+    rest = torch.ones(B_FINISH, dtype=torch.bool, device=ok.device)
+    rest[idx] = False
+    moved = sum(not torch.equal(a[rest], b[rest]) for a, b in zip(into_k, base))
+    check(m_bad == 0 and moved == 0,
+          f"finish merge: {m_bad} outputs differ from merge_plain, {moved} moved off its lanes")
+    n_fixed = int((into_k[5][idx] == 1).sum())
+    rows = {}
+    n_u, m = base[0].shape[1], lam.shape[1]
+    row_read = th64.shape[1] * 8 + m * (4 + 1 + 1) + 4   # a slot's lane: th, lam, act, side, iters
+    row_written = n_u * 8 + m * (8 + 1 + 1) + 4 + 4      # a taken lane: U, lam, act, side, iters, status
+    for kind, fn, plain, args, into, name, n_bytes in (
+            ("gather", roll_finish.gather, roll_finish.gather_plain, g_in, (), "gather_kernel",
+             ok.numel() * (1 + 4) + K * row_read + nbytes(*out_k)),
+            ("merge", roll_finish.merge, roll_finish.merge_plain, upd, into_k, "merge_kernel",
+             nbytes(*upd) + K * row_written)):
+        kw = {} if kind == "gather" else {"tol": ROLLOUT_TOL}
+        ms = cuda_ms(lambda: fn(*args, *into, **kw), 20)
+        dev_ms = kernel_device_ms(lambda: [fn(*args, *into, **kw) for _ in range(5)], name)
+        ms_p = cuda_ms(lambda: plain(*args, *(into_p if into else ()), **kw), 3, warmup=1)
+        b_ms, b_by = bound(n_bytes, 0.0, torch.float64)
+        log(f"    finish {kind}, B={B_FINISH}, {K} slots of {len(failing)} failing lanes: "
+            f"unequal outputs {g_bad if kind == 'gather' else m_bad}; call {ms:.4f} ms"
+            f"{' (with its cumsum)' if kind == 'gather' else ''}, device {fmt_ms(dev_ms)}, "
+            f"plain {ms_p:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}, {n_bytes} bytes)")
+        rows[kind] = dict(max_abs_err=0.0, ms=ms, device_ms=dev_ms, plain_ms=ms_p,
+                          bound_ms=b_ms, bound_by=b_by)
+    log(f"    the continuation turned {n_fixed} of the {K} lanes taken to status 1")
     return rows
 
 
@@ -1386,7 +1468,7 @@ def single_phases(dev, by_path: dict) -> tuple[dict, dict]:
     by_path["single"] = read_counts()
     log(f"    single-solve path launches: {by_path['single']}")
     check(by_path["single"] == dict(bulk=len(k1_calls), polish=0, iu=len(k3_calls), ciu=0,
-                                    iu_epilogue=0),
+                                    iu_epilogue=0, roll_finish=0, roll_finish_merge=0),
           "single solves: launches other than the golden solve's K1 and the infeasible "
           "point's K3")
 
@@ -1929,7 +2011,8 @@ def profiling_phase(dev, by_path: dict):
     names = [s.name for s in profiling.spans()]
     log(f"  trace: {size} bytes of Chrome trace, program spans {names}")
     check(size > 0, "trace: empty file")
-    check(names == ["lmpc.engine.solve_batch"], f"trace: program spans {names}")
+    check(names == ["lmpc.engine.solve_batch", "lmpc.small.k1", "lmpc.small.polish",
+                     "lmpc.small.stragglers"], f"trace: program spans {names}")
     log(f"    [30] {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -2098,9 +2181,15 @@ def main() -> int:
         f"rollout: max rel |du| {rel_u:.3e}")
     check(rel_u <= 1e-5, f"rollout vs CPU f64: {rel_u:.3e} > 1e-5")
     by_path["small"] = read_counts()
-    launches = {"bulk": by_path["small"]["bulk"], "polish": by_path["small"]["polish"]}
-    log(f"    small-m path launches: K1 {launches['bulk']}, K2 {launches['polish']}")
+    launches = {"bulk": by_path["small"]["bulk"], "polish": by_path["small"]["polish"],
+                "roll_merge": by_path["small"]["roll_finish_merge"]}
+    launches["roll_gather"] = by_path["small"]["roll_finish"] - launches["roll_merge"]
+    log(f"    small-m path launches: K1 {launches['bulk']}, K2 {launches['polish']}, the "
+        f"finish's gather {launches['roll_gather']} and merge {launches['roll_merge']}")
     check(launches["bulk"] > 0 and launches["polish"] > 0, "a kernel was never launched")
+    check(launches["roll_gather"] == launches["roll_merge"] == N_ROLL,
+          f"the finish ran {launches['roll_gather']} gathers and {launches['roll_merge']} "
+          f"merges in {N_ROLL} rollout steps")
 
     # [7] timings (CUDA events, after warm-up), at the main path's shapes
     args = phase1_inputs(eng, th, torch.float32)
@@ -2353,9 +2442,11 @@ def main() -> int:
 
     # [17] the K1/K2 launches of the small-m path, replayed alone, and its
     # host syncs
-    log("[17] K1/K2 launches of the small-m path: vs plain, call / device / plain time, bound")
+    log("[17] K1/K2 launches of the small-m path and the finish's gather and merge: vs plain, "
+        "call / device / plain time, bound")
     rs_small = np.zeros((B_ROLL, 2))
     small_rows = replay_small(small_launches(mpc, th_dev, x0s, rs_small))
+    finish_rows = roll_finish_phase(mpc)
     n_sync = sync_checks(mpc, th_dev, x0s, rs_small)
     log(f"    rollout step under set_sync_debug_mode('error'): no sync; one cold batch of "
         f"{B_COLD} under 'warn': {n_sync} synchronizing calls")
@@ -2411,6 +2502,16 @@ def main() -> int:
          "launches": launches["iu_epilogue"], "launches_by_path": per_path("iu_epilogue"),
          "max_abs_err": ep_err, "ms": ms_ep, "device_ms": dev_ep, "plain_ms": ms_ep_p,
          "bound_ms": ep_bound[0], "bound_by": ep_bound[1], "library_ms": None},
+        *({"name": f"small-m rollout finish {kind}", "route": "cuda",
+           "source": "linearmpc_tpu_torch/csrc/roll_finish.cu",
+           "replaces": "none: the JAX rollout step has no finish "
+                       "(linearmpc_tpu/ops/engine.py:1218-1241)",
+           "launches": launches[f"roll_{kind}"], "launches_by_path": by_kind, **finish_rows[kind],
+           "library_ms": None}
+          for kind, by_kind in (
+              ("gather", {p: by_path[p]["roll_finish"] - by_path[p]["roll_finish_merge"]
+                          for p in PATHS}),
+              ("merge", per_path("roll_finish_merge")))),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -23,8 +23,8 @@ subset table fits it (m <= 10, no forced rows), and K3 (``ops/iu.py``)
 for the float32 bulk phase with ``bulk_inverse_updates``. At m = 11-12,
 beyond the subset cache and for an LU solve no kernel computes the loop
 (the JAX package runs XLA there): the masked loop runs as torch ops on the
-arrays' device. ``finish_from_state`` with a subset table is K1's float64
-instantiation too.
+arrays' device. ``continue_from_state`` (the continuation of
+``finish_from_state``) with a subset table is K1's float64 instantiation too.
 """
 
 from __future__ import annotations
@@ -487,18 +487,18 @@ def solve_single(arr: LDPArrays, thetas, lam0=None, active0=None, side0=None, *,
     return Solution(U, final.lam, final.active, final.side, fval, final.iters, status)
 
 
-def finish_from_state(arr_hi: LDPArrays, thetas, lam, active, side, iters0, *,
-                      max_iter: int = 32, primal_tol: float = 1e-6,
-                      sign_tol: float = 1e-11, use_cholesky: bool = True) -> Solution:
-    """High-precision continuation + primal recovery from a bulk-phase
-    state: each lane runs at most ``max_iter`` more iterations, counting
-    from ``iters0``. With a subset table (m <= 10) this is the K1 kernel's
-    float64 instantiation on CUDA (given the host copies of the masks, so
-    the call makes no device sync) and its plain version on the CPU."""
+def continue_from_state(arr_hi: LDPArrays, thetas, lam, active, side, iters0, *,
+                        max_iter: int = 32, primal_tol: float = 1e-6,
+                        sign_tol: float = 1e-11, use_cholesky: bool = True) -> DualState:
+    """High-precision continuation of a bulk-phase state: each lane runs at
+    most ``max_iter`` more iterations, counting from ``iters0``. With a
+    subset table (m <= 10) this is the K1 kernel's float64 instantiation on
+    CUDA (given the host copies of the masks, so the call makes no device
+    sync) and its plain version on the CPU."""
     dtype, dev = arr_hi.G.dtype, arr_hi.G.device
-    thetas = thetas.to(dev, dtype)
-    du_t, dl_t = _transformed_bounds(arr_hi, thetas)
-    active = active | arr_hi.is_eq
+    du_t, dl_t = _transformed_bounds(arr_hi, thetas.to(dev, dtype))
+    if arr_hi.is_eq_host.any():
+        active = active | arr_hi.is_eq
     iters0 = iters0.to(dev, torch.int32)
     m = arr_hi.G.shape[0]
     if arr_hi.subset_inv is not None and m <= bulk.MAX_M:
@@ -506,13 +506,16 @@ def finish_from_state(arr_hi: LDPArrays, thetas, lam, active, side, iters0, *,
             arr_hi.subset_inv, arr_hi.G, du_t, dl_t, arr_hi.is_eq_host,
             arr_hi.is_immutable_host, lam.to(dtype), active, side,
             max_iter=max_iter, primal_tol=primal_tol, sign_tol=sign_tol)
-        final = DualState(lam_f, act_f, side_f, iters0 + it, done)
-    else:
-        final = _active_set_loop(arr_hi, du_t, dl_t, lam.to(dtype), active, side,
-                                 max_iter=iters0 + max_iter, primal_tol=primal_tol,
-                                 sign_tol=sign_tol, use_cholesky=use_cholesky,
-                                 iters0=iters0)
-    U, fval = _recover(arr_hi, thetas, final.lam)
+        return DualState(lam_f, act_f, side_f, iters0 + it, done)
+    return _active_set_loop(arr_hi, du_t, dl_t, lam.to(dtype), active, side,
+                            max_iter=iters0 + max_iter, primal_tol=primal_tol,
+                            sign_tol=sign_tol, use_cholesky=use_cholesky, iters0=iters0)
+
+
+def finish_from_state(arr_hi: LDPArrays, thetas, lam, active, side, iters0, **kw) -> Solution:
+    """``continue_from_state`` (``kw`` its keywords) + primal recovery."""
+    final = continue_from_state(arr_hi, thetas, lam, active, side, iters0, **kw)
+    U, fval = _recover(arr_hi, thetas.to(arr_hi.G.device, arr_hi.G.dtype), final.lam)
     one = torch.ones_like(final.iters)
     status = torch.where(final.done, one, -one)
     return Solution(U, final.lam, final.active, final.side, fval, final.iters, status)

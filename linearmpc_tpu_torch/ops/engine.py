@@ -18,7 +18,8 @@ accelerator, a float64 engine the exact CPU route, on either device:
 * **float32, m <= 10**, the small-m tier (any H): K1 bulk phase (``ops/bulk.py``)
   -> K2 polish (``ops/polish.py``) -> ``torch.topk`` of the K=256 worst
   lanes by ``bad`` -> ``finish_from_state`` in float64 -> merge and status
-  (``engine.py:1136-1211``); ``fused_rollout_solve`` is its warm step.
+  (``engine.py:1136-1211``); ``fused_rollout_solve`` is its warm step, with
+  a float64 finish of the lanes that fail its status rule.
 * **float32, m > 12 where K3's routing rule admits m** (``iu_max_chunk_lanes
   (m) >= 128``, m <= 52), the IU tier (``engine.py:227-348``): K3 bulk
   phase (``ops/iu.py``) carrying the masked inverse R, float64 Richardson
@@ -68,7 +69,11 @@ the frontier rounds). No lane chunking and no B % 128 rule or padding: the
 kernels take any batch size.
 
 Deliberate differences from the JAX package: the small-m tier reports
-status 1 or -1 only (``engine.py:1209-1210``); K4 breaks ties between
+status 1 or -1 only (``engine.py:1209-1210``); its warm rollout step
+finishes the lanes that fail its status rule, up to ``STRAGGLER_K`` a step,
+on K1's float64 instantiation and K2, as the cold tier finishes its
+stragglers, where the JAX rollout step leaves them at -1
+(``engine.py:1218-1241``); K4 breaks ties between
 equal dual step lengths by row, as the Pallas kernel does, also where the
 JAX package runs its XLA compact loop (warm solves, the f64 guards); a
 float64 re-solve (the IU tier's, the compact guard and ladder) whose
@@ -84,12 +89,13 @@ import numpy as np
 import torch
 
 from ..profiling import count, span
-from . import bulk, ciu, iu, polish
+from . import bulk, ciu, iu, polish, roll_finish
 from .bnb import solve_bnb_dfs
 from .bnb_frontier import FrontierRounds, IncFrontier, make_xla_relax, solve_bnb_frontier
 from .dual_active_set import (
     LDPArrays,
     Solution,
+    continue_from_state,
     finish_from_state,
     polish_solution,
     solve_single,
@@ -98,7 +104,9 @@ from .dual_active_set import (
 from .hierarchy import LexSolver
 from .ldp import SUBSET_CACHE_MAX_M, LDPData, precompute_subset_inverses
 
-STRAGGLER_K = 256   # lanes routed through the float64 continuation
+STRAGGLER_K = 256   # lanes routed through the float64 continuation, and
+                    # the most a rollout step's finish takes (without it a
+                    # step of invpend-montecarlo left at most 16 at -1)
 STRAGGLER_ITERS = 24
 FIX_TOL = 1e-8      # residual above which a lane is re-solved in float64
 ROLLOUT_TOL = 1e-5  # residual bound of a small-m rollout step's status
@@ -268,6 +276,8 @@ class SolverEngine:
         self._has_eq = bool(self._eq.any())
         if self.path == "small":
             self._pd = polish.make_polish_data(ldp, subset_inv, self.device)
+            one = torch.ones((), dtype=torch.int32, device=self.device)
+            self._plus_minus_one = (one, -one)
             self.bulk_cap = min(self.iter_limit, 2 * m + 20)
             return
         # the GI kernels' Gram matrices: f32 as the Pallas kernels build
@@ -478,17 +488,42 @@ class SolverEngine:
     @full_f32()
     def fused_rollout_solve(self, thetas, lam0, act0, side0):
         """Warm-started whole-batch step of the closed loop: K1 bulk phase
-        from the previous step's state, then K2 polish, no straggler tier.
+        from the previous step's state, then K2 polish, then the float64
+        finish of the lanes that fail the status rule (``_roll_finish``).
         Returns (U, lam, act, side, iters, status) with float64 U and lam;
         status is 1 where the lane converged and its residual is at most
         ``ROLLOUT_TOL``."""
-        lam, act, side, iters, done = self._small_k1(
-            thetas, lam0.to(torch.float32), act0 | self.arrays.is_eq, side0)
+        act0 = act0 | self.arrays.is_eq if self._has_eq else act0.contiguous()
+        lam, act, side, iters, done = self._small_k1(thetas, lam0.to(torch.float32), act0, side0)
         with span("lmpc.small.polish"):
-            U, lam_p, _fval, bad = polish.polish(self._pd, thetas.to(torch.float64), act, side)
-            one = torch.ones_like(iters)
-            status = torch.where(done & (bad <= ROLLOUT_TOL), one, -one)
+            th64 = thetas.to(torch.float64)
+            U, lam_p, _fval, bad = polish.polish(self._pd, th64, act, side)
+            ok = done & (bad <= ROLLOUT_TOL)
+            status = torch.where(ok, *self._plus_minus_one)
+            self._roll_finish(th64, lam, act, side, iters, ok, U, lam_p, status)
         return U, lam_p, act, side, iters, status
+
+    def _roll_finish(self, th64, lam, act, side, iters, ok, U, lam_p, status):
+        """The float64 finish of a warm step, in place on its outputs: the
+        first ``STRAGGLER_K`` lanes that fail the status rule ``ok`` (placed
+        in slots without a host read, ``roll_finish.gather``) continue from
+        K1's float32 final state for ``STRAGGLER_ITERS`` more iterations
+        (``continue_from_state``, as the cold tier's ``finish_from_state``);
+        K2 re-solves the working set each ends on, and the step's rule gives
+        its status. Only the lanes that failed take the result; a lane the
+        continuation cannot finish stays -1. Counts ``small.roll_fixed``,
+        the lanes taken (a held tensor)."""
+        idx, take, th_k, lam_k, act_k, side_k, iters_k = roll_finish.gather(
+            ok, min(STRAGGLER_K, ok.shape[0]), th64, lam, act, side, iters)
+        fin = continue_from_state(self.arrays_hi, th_k, lam_k, act_k, side_k, iters_k,
+                                  max_iter=STRAGGLER_ITERS)
+        U_f, lam_f, _fval, bad_f = polish.polish(self._pd, th_k, fin.active, fin.side)
+        roll_finish.merge(idx, take, U_f, lam_f, fin.active, fin.side, fin.iters, fin.done,
+                          bad_f, U, lam_p, act, side, iters, status, tol=ROLLOUT_TOL)
+        count("small.roll_fixed", lambda t=take: t.sum())
+        # the merge wrote the finish's iterations into K1's in place:
+        # small.k1_iters counts K1's own
+        count("small.k1_iters", lambda t=take, i0=iters_k, it=fin.iters: -((it - i0) * t).sum())
 
     # -- the IU tier (m up to ~52) -------------------------------------------
     def _status(self, infeas, ok):

@@ -8,6 +8,10 @@ reference/disturbance/parameter preview windows, reference condensation
 and offset-free observers), a warm-started solve, Kalman predict, plant
 step. Warm starts carry the working set between steps, as DAQP's warm
 start does (reference codegen DAQP_WARMSTART, src/codegen.jl:167-169).
+Each step writes where its results are kept: slab [k] of time-major
+outputs allocated once, and theta's parts into one buffer in place. A part
+given per lane is written once; a trajectory is read at min(k, T - 1), so
+nothing is padded.
 
 A float32 engine steps through the warm step of its tier, the kernels on
 CUDA and their plain versions on the CPU: ``fused_rollout_solve`` (K1 and
@@ -31,6 +35,9 @@ from .profiling import span
 
 
 class RolloutResult(NamedTuple):
+    """Time-major buffers seen batch-major: each field is a ``transpose(0,
+    1)`` view of the (N, B, ...) buffer the rollout writes step by step."""
+
     xs: torch.Tensor      # (B, N, nx) plant states
     us: torch.Tensor      # (B, N, nu) applied controls
     ys: torch.Tensor      # (B, N, ny) outputs
@@ -38,13 +45,22 @@ class RolloutResult(NamedTuple):
     status: torch.Tensor  # (B, N)
 
 
-def _pad_traj_time(traj, T_needed):
-    """Hold-last pad a (B, T, n) trajectory along time to T_needed."""
-    B, T, n = traj.shape
-    if T >= T_needed:
-        return traj[:, :T_needed, :]
-    pad = traj[:, -1:, :].expand(B, T_needed - T, n)
-    return torch.cat([traj, pad], dim=1)
+def _at(tr, k):
+    """Step ``k`` of a per-lane input: (B, n) constant, or (B, T, n) held at
+    its last step beyond T."""
+    return tr if tr.dim() == 2 else tr[:, min(k, tr.shape[1] - 1)]
+
+
+def _window(tr, k0, width):
+    """Steps ``k0`` .. ``k0 + width - 1`` of a per-lane input as (B, width,
+    n), held at its last step beyond T."""
+    if tr.dim() == 2:
+        return tr[:, None, :].expand(-1, width, -1)
+    T = tr.shape[1]
+    if k0 + width <= T:
+        return tr[:, k0 : k0 + width]
+    steps = torch.arange(k0, k0 + width, device=tr.device).clamp_(max=T - 1)
+    return tr.index_select(1, steps)
 
 
 def build_rollout(mpc, *, plant=None, use_observer=None):
@@ -53,7 +69,8 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
     Returns ``rollout(x0s, rs, ds, ps=None, N=100) -> RolloutResult``:
       * ``x0s``: (B, nx) initial states
       * ``rs``:  (B, ny) constant reference per lane or (B, T, ny) trajectory
-      * ``ds``:  (B, T, nd_measured) measured disturbances (or None)
+      * ``ds``:  (B, nd_measured) constant or (B, T, nd_measured) measured
+        disturbances (or None)
       * ``ps``:  (B, np_base) constant or (B, T, np_base) trajectory (or None)
 
     ``plant``: optional (F, G, f_offset)-triple overriding the simulated
@@ -119,13 +136,12 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
         sol = engine.solve_batch(theta, warm=(lam, act, side))
         return sol.U, sol.lam, sol.active, sol.side, sol.iters, sol.status, carry
 
-    def traj(a, B, T_need, width):
-        if a is None or not width:
-            return torch.zeros((B, T_need, width), dtype=dtype, device=dev)
-        a = c(a)
-        if a.dim() == 2:
-            a = a[:, None, :]
-        return _pad_traj_time(a, T_need)
+    # theta = [xhat; r; d; u_prev; p]: where each part starts
+    o_r = nx_
+    o_d = o_r + nr
+    o_u = o_d + nd
+    o_p = o_u + nuprev
+    n_theta = o_p + np_
 
     @torch.no_grad()
     def rollout(x0s, rs=None, ds=None, ps=None, N: int = 100):
@@ -135,65 +151,92 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
     def run(x0s, rs, ds, ps, N):
         x0s = c(x0s)
         B = x0s.shape[0]
-        # normalize trajectories to (B, N + Np + 1, *) with hold-last padding
-        T_need = N + Np + 1
-        rs = traj(rs if nr else None, B, T_need, ny)
-        ds = traj(ds, B, T_need, nd_sim)
-        ps = traj(ps if np_ else None, B, T_need, max(np_base, 1))
 
-        def window(tr, k0, width):
-            # time-major (B, width, n) blocks; callers flatten to match vec()
-            return tr[:, k0 : k0 + width, :]
+        def lane_input(a, width):
+            # (B, n) constant or (B, T, n); zeros where the caller gives none
+            return c(a) if a is not None else torch.zeros((B, width), dtype=dtype, device=dev)
 
-        x = x0s
+        rs = lane_input(rs, ny) if nr else None
+        ds = lane_input(ds, nd_sim) if nd_sim else None
+        ps = lane_input(ps, np_base) if np_ else None
+
+        # each step writes its slab [k] of the outputs, and theta's parts in
+        # place; xs holds one slab more, the state after the last step
+        xs = torch.empty((N + 1, B, nx), dtype=dtype, device=dev)
+        us = torch.empty((N, B, nu), dtype=dtype, device=dev)
+        ys = torch.empty((N, B, ny), dtype=dtype, device=dev)
+        meta = torch.empty((N, B, 2), dtype=torch.int32, device=dev)  # iters, status
+        theta = torch.zeros((B, n_theta), dtype=dtype, device=dev)
+
+        def put_r(k):
+            if r_preview:
+                # reference window: steps k+1 .. k+Np (hold-last)
+                r_flat = _window(rs, k + 1, Np).reshape(B, -1)
+                theta[:, o_r:o_d] = r_flat @ T2S.T if r_condense else r_flat
+            else:
+                theta[:, o_r:o_d] = _at(rs, k)
+
+        def put_d(k):
+            # the measured channels; the estimated ones follow each step
+            if d_preview:
+                theta[:, o_d:o_u].unflatten(1, (Np, nd_sim + ndo))[:, :, :nd_sim] = (
+                    _window(ds, k, Np))
+            else:
+                theta[:, o_d:o_d + nd_sim] = _at(ds, k)
+
+        def put_p(k):
+            theta[:, o_p:] = (_window(ps, k, Np).reshape(B, -1) if p_preview
+                              else _at(ps, k))
+
+        # a part given per lane is written once, a trajectory every step
+        per_step = []
+        for put, tr in ((put_r, rs), (put_d, ds), (put_p, ps)):
+            if tr is not None and tr.dim() == 3:
+                per_step.append(put)
+            elif tr is not None:
+                put(0)
+
+        x = xs[0]
+        x.copy_(x0s)
         xo = torch.zeros((B, nxo), dtype=dtype, device=dev)
         if has_obs:
             xo[:, :nx] = x0s
-        uprev = torch.zeros((B, nu), dtype=dtype, device=dev)
         lam = torch.zeros((B, m), dtype=dtype, device=dev)
         act = torch.zeros((B, m), dtype=torch.bool, device=dev)
         side = torch.ones((B, m), dtype=torch.bool, device=dev)
         carry = (engine.iu_R0_init(B) if engine.path == "iu"
                  else engine.ciu_carry_init(B) if engine.path == "compact" else None)
-        out = {k: [] for k in ("xs", "us", "ys", "iters", "status")}
         for kk in range(N):
             with span("lmpc.rollout.step"):
                 with span("lmpc.rollout.theta"):
-                    d_k = ds[:, kk, :]
-                    y_m = x @ C.T + h_off + (d_k @ Dd.T if nd_sim else 0.0)
+                    d_k = _at(ds, kk) if nd_sim else None
+                    y_m = ys[kk]
+                    torch.matmul(x, C.T, out=y_m)
+                    y_m.add_(h_off)
+                    if nd_sim:
+                        y_m.add_(d_k @ Dd.T)
 
                     if has_obs:
-                        inov = y_m - xo @ oC.T - oh - (d_k @ oDd.T if nd_sim else 0.0)
+                        inov = y_m - xo @ oC.T - oh
+                        if nd_sim:
+                            inov = inov - d_k @ oDd.T
                         xo = xo + inov @ oK.T
                         xhat = xo[:, :nx]
                     else:
                         xhat = x
-                    d_est = xo[:, nx : nx + ndo] if offset_free else None
 
-                    parts = [xhat]
-                    if nr:
-                        if r_preview:
-                            # reference window: steps k+1 .. k+Np (hold-last)
-                            r_flat = window(rs, kk + 1, Np).reshape(B, -1)
-                            parts.append(r_flat @ T2S.T if r_condense else r_flat)
-                        else:
-                            parts.append(rs[:, kk, :])
-                    if nd:
+                    theta[:, :nx] = xhat
+                    for put in per_step:
+                        put(kk)
+                    if ndo:
+                        d_est = xo[:, nx : nx + ndo]
                         if d_preview:
-                            w = window(ds, kk, Np)
-                            if ndo:
-                                w = torch.cat([w, d_est[:, None, :].expand(B, Np, ndo)], dim=2)
-                            parts.append(w.reshape(B, -1))
+                            est = theta[:, o_d:o_u].unflatten(1, (Np, nd_sim + ndo))[:, :, nd_sim:]
+                            est.copy_(d_est[:, None, :].expand(B, Np, ndo))
                         else:
-                            parts.append(torch.cat([d_k, d_est], dim=1) if ndo else d_k)
-                    if nuprev:
-                        parts.append(uprev[:, :nuprev])
-                    if np_:
-                        if p_preview:
-                            parts.append(window(ps, kk, Np).reshape(B, -1))
-                        else:
-                            parts.append(ps[:, kk, :])
-                    theta = torch.cat(parts, dim=1)
+                            theta[:, o_d + nd_sim:o_u] = d_est
+                    if nuprev and kk:
+                        theta[:, o_u:o_p] = us[kk - 1][:, :nuprev]
 
                 with span("lmpc.rollout.solve"):
                     U, lam_n, act, side, iters_n, status_n, carry = solve_step(
@@ -201,17 +244,22 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
 
                 with span("lmpc.rollout.plant"):
                     lam = lam_n.to(dtype)
-                    u = U[:, :nu].to(dtype) - xhat @ K.T
+                    u = torch.sub(U[:, :nu].to(dtype), xhat @ K.T, out=us[kk])
 
                     if has_obs:
-                        xo = xo @ oF.T + u @ oG.T + of + (d_k @ oGd.T if nd_sim else 0.0)
+                        xo = xo @ oF.T + u @ oG.T + of
+                        if nd_sim:
+                            xo = xo + d_k @ oGd.T
 
-                    x_next = x @ Fp.T + u @ Gp.T + fp + (d_k @ Gd.T if nd_sim else 0.0)
-                    for k, v in (("xs", x), ("us", u), ("ys", y_m), ("iters", iters_n),
-                                 ("status", status_n)):
-                        out[k].append(v)
-                    x, uprev = x_next, u
-        return RolloutResult(*(torch.stack(out[k], dim=1)
-                               for k in ("xs", "us", "ys", "iters", "status")))
+                    x_next = xs[kk + 1]
+                    torch.matmul(x, Fp.T, out=x_next)
+                    x_next.add_(u @ Gp.T)
+                    x_next.add_(fp)
+                    if nd_sim:
+                        x_next.add_(d_k @ Gd.T)
+                    torch.stack((iters_n, status_n), dim=1, out=meta[kk])
+                    x = x_next
+        return RolloutResult(xs[:N].transpose(0, 1), us.transpose(0, 1), ys.transpose(0, 1),
+                             meta[:, :, 0].transpose(0, 1), meta[:, :, 1].transpose(0, 1))
 
     return rollout

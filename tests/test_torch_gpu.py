@@ -415,12 +415,16 @@ def test_small_kernels_ragged_batch_match_plain(B):
 
 
 def test_small_kernels_warm_rollout_step_match_plain():
-    """The K1 and K2 launches of the 11th step of a 4096-lane rollout."""
+    """The K1 and K2 launches of the 11th step of a 4096-lane rollout (each
+    step's float64 finish launches both again on its 256 slots)."""
     mpc, _th = _small(SMALL_CASES["invpend"], 1, seed=0)
     x0s = np.random.default_rng(22).uniform(-0.5, 0.5, (4096, 4))
     run = lambda: tmpc.build_rollout(mpc)(x0s, np.zeros((4096, 2)), None, N=11)
     calls_p = []
     calls_b = _record(bulk, "phase1", lambda: calls_p.extend(_record(polish, "polish", run)))
+    assert len(calls_b) == len(calls_p) == 22
+    calls_b, calls_p = ([c for c in calls if c[0][2].shape[0] == 4096]
+                        for calls in (calls_b, calls_p))
     assert len(calls_b) == len(calls_p) == 11
     args, kw = calls_b[10]
     _k1_equal(args, kw)
