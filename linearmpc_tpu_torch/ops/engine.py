@@ -922,6 +922,32 @@ class SolverEngine:
             w = (None,) * 3 if warm is None else tuple(warm)
             return solve_single(self.arrays, thetas, *w, **self._single_kw)
 
+    def warm_carry(self, B: int):
+        """What a closed loop of B lanes carries from step to step besides
+        (lam, act, side): the IU tier's masked inverse R, the compact tier's
+        (slots, Rw), on a cold start; None on every other path."""
+        if self.path == "iu":
+            return self.iu_R0_init(B)
+        if self.path == "compact":
+            return self.ciu_carry_init(B)
+        return None
+
+    def warm_step(self, thetas, lam, act, side, carry):
+        """One warm-started step of the closed loop from the previous step's
+        (lam, act, side) and ``carry`` (``warm_carry`` at the first step):
+        the float32 tiers' fused steps (``fused_rollout_solve``,
+        ``fused_rollout_solve_iu``, ``fused_rollout_solve_ciu``), and
+        ``solve_batch`` warm on every other path. Returns (U, lam, act,
+        side, iters, status, carry)."""
+        if self.path == "small":
+            return (*self.fused_rollout_solve(thetas, lam, act, side), carry)
+        if self.path == "iu":
+            return self.fused_rollout_solve_iu(thetas, lam, act, side, carry)
+        if self.path == "compact":
+            return self.fused_rollout_solve_ciu(thetas, lam, act, side, carry)
+        sol = self.solve_batch(thetas, warm=(lam, act, side))
+        return sol.U, sol.lam, sol.active, sol.side, sol.iters, sol.status, carry
+
     @full_f32()
     def solve(self, theta) -> tuple[np.ndarray, float, int, dict]:
         """Single solve (reference solve(), src/utils.jl:268-283), routed as

@@ -1,21 +1,14 @@
-"""Observability: solve counters, the kernels' work and bounds, stream
-overlap, profiler traces, and the program's own spans and counters.
+"""Observability: solve counters, stream overlap, profiler traces, and the
+program's own spans and counters.
 
 Port of ``linearmpc_tpu/profiling.py``. ``instrument`` wraps an engine's
 ``solve_batch`` with counters (``SolveStats``), synchronizing the engine's
-device where the JAX package blocks on the result. The operation and byte
-models count what the port's kernels compute (K1 ``csrc/bulk.cu``, K2
-``csrc/polish.cu``, K3 ``csrc/iu.cu`` and its search entry
-``csrc/inc_search.cu``, K4 ``csrc/ciu.cu``), not the TPU kernels' one-hot
-gathers: they are the one definition of the bounds that ``chip_smoke.py``
-reports (``bound``, ``gi_bound``, ``k1_bound``, ``k2_bound``,
-``step_bound``, ``search_bound``). The peaks are the H100 SXM's (NVIDIA's
-data sheet, at its 700 W limit): HBM3 at 3.35 TB/s, float32 at 67 TFLOP/s
-outside the tensor cores and float64 at 67 TFLOP/s on them, the card's
-highest rate for each type. ``overlap_report`` times K1 on one batch
-against K2 on another on two CUDA streams; ``trace`` records a
-``torch.profiler`` trace and writes it in Chrome's format, with the
-program's spans beside the profiler's events.
+device where the JAX package blocks on the result. ``overlap_report`` times
+K1 on one batch against K2 on another on two CUDA streams; ``trace``
+records a ``torch.profiler`` trace and writes it in Chrome's format, with
+the program's spans beside the profiler's events. The benchmark
+(``mpcbench/``) reads the spans and counters for its per-layer metrics and
+keeps its own work models of the kernels.
 
 **Spans and counters.** The solve paths mark their layer boundaries with
 ``span("lmpc.<layer>.<stage>")`` and count their work with ``count(name,
@@ -48,9 +41,6 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 @dataclass
@@ -117,150 +107,6 @@ def instrument(engine) -> SolveStats:
     engine.solve_batch = wrapped
     engine.stats = stats
     return stats
-
-
-# -- the kernels' work: operations per lane (and iteration) ------------------
-
-
-def phase1_flops_per_lane_iter(m: int) -> float:
-    """K1, one iteration of a lane: the working-set solve with the gathered
-    subset inverse and the slack G @ lam (2 m^2 each) and O(m) tests."""
-    return 4.0 * m * m + 10.0 * m
-
-
-def polish_flops_per_lane(m: int, n_u: int, nth: int) -> float:
-    """K2, once a lane (native float64): the transformed bounds (m x nth),
-    the working-set solve and the slacks (2 m^2), the control (n_u x nth,
-    n_u x m), the objective (n_u^2, n_u x nth) and the KKT residual."""
-    return 2.0 * (m * nth + 2 * m * m + 2 * n_u * nth + n_u * m + n_u * n_u + 2 * n_u)
-
-
-def gi_flops_per_lane_iter(m: int, s: int, w) -> float:
-    """K3 (s = m) and K4 (s slots), one iteration of a lane whose working set
-    holds w rows: the jump, the Goldfarb-Idnani direction and the Woodbury
-    product on the inverse (s x w each), the slack G @ lam_base (m x w) and
-    the rank-2 update (w^2). ``w`` may be a tensor of per-lane sizes."""
-    return 2 * (3 * s * w + m * w) + 4 * w * w
-
-
-def search_management_flops(m: int, n: int):
-    """K3's search entry, one management step of a lane (at most m
-    multipliers nonzero): c = G lam (2 m^2), U = U0 - HinvET lam (2 n m),
-    HU and fval (2 n^2 + 4 n), the dual bound (4 m) and the fractionality
-    of each row (5 m)."""
-    return 2.0 * m * m + 2.0 * n * m + 2.0 * n * n + 4.0 * n + 9.0 * m
-
-
-def iu_flops_per_lane_iter(m: int, w: int | None = None) -> float:
-    """K3 at a working set of w rows (all m rows if not given)."""
-    return gi_flops_per_lane_iter(m, m, m if w is None else w)
-
-
-def ciu_flops_per_lane_iter(m: int, s: int, w: int | None = None) -> float:
-    """K4 over s slots at a working set of w rows (all slots if not given)."""
-    return gi_flops_per_lane_iter(m, s, s if w is None else w)
-
-
-def phase1_bytes_per_lane(m: int, itemsize: int = 4) -> float:
-    """K1's device-memory bytes a lane, each read or written once: the
-    bounds, lam in and out (4 m values), act and side in and out (4 m
-    bytes), iters and done. The subset table is shared by the batch."""
-    return 4.0 * m * itemsize + 4.0 * m + 5.0
-
-
-def iu_bytes_per_lane(m: int, itemsize: int = 4) -> float:
-    """K3's device-memory bytes a lane, each read or written once: the
-    bounds and lam in and out (4 m values), the masks in and out (4 m
-    bytes), the flags and the count, and the carried (m, m) inverse in and
-    out. The inverse stays on the chip between iterations."""
-    return 4.0 * m * itemsize + 4.0 * m + 7.0 + 2.0 * m * m * itemsize
-
-
-def ciu_bytes_per_lane(m: int, s: int, itemsize: int = 4) -> float:
-    """K4's device-memory bytes a lane: as ``iu_bytes_per_lane`` with an
-    (s, s) slot inverse, and the slot map in and out as int32."""
-    return 4.0 * m * itemsize + 4.0 * m + 8.0 + 2.0 * s * s * itemsize + 8.0 * s
-
-
-# -- bounds: the least time the card could take for a launch's work ----------
-
-
-def nbytes(*tensors) -> int:
-    """Bytes the tensors hold, each read or written once (a broadcast view
-    counts the one matrix it views)."""
-    return sum(min(t.numel() * t.element_size(), t.untyped_storage().nbytes())
-               for t in tensors if isinstance(t, torch.Tensor))
-
-
-def bound(n_bytes: float, flops: float, dtype) -> tuple[float, str]:
-    """(least ms, what sets it) for moving n_bytes and doing flops."""
-    t_b, t_f = n_bytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype]
-    return 1e3 * max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
-
-
-def gi_bound(args, out) -> tuple[float, str]:
-    """K3/K4's bound on this run's data (``phase1_iu`` / ``phase1_ciu``
-    arguments and outputs): inputs and outputs once, and per lane-iteration
-    ``gi_flops_per_lane_iter`` at the lane's working set at exit. The slot
-    maps, int64 at the wrapper, move as int32 in the kernel."""
-    m, s = args[2].shape[1], args[-1].shape[-1]
-    w = out[1].sum(1).double()
-    flops = float((out[3].double() * gi_flops_per_lane_iter(m, s, w)).sum())
-    moved = sum(nbytes(t) // (2 if t.dtype == torch.int64 else 1)
-                for t in (*args, *out) if isinstance(t, torch.Tensor))
-    return bound(moved, flops, args[2].dtype)
-
-
-def k1_bound(args, out) -> tuple[float, str]:
-    """K1's bound on this run's data (``bulk.phase1`` arguments and
-    outputs): inputs and outputs once, ``phase1_flops_per_lane_iter`` for
-    each iteration a lane ran."""
-    m = args[2].shape[1]
-    flops = float(out[3].double().sum()) * phase1_flops_per_lane_iter(m)
-    return bound(nbytes(*args) + nbytes(*out), flops, args[2].dtype)
-
-
-def k2_bound(pd, args, out) -> tuple[float, str]:
-    """K2's bound (``polish.polish`` arguments and outputs): the statics,
-    theta, the masks and the outputs once, ``polish_flops_per_lane`` a
-    lane."""
-    B, m = args[2].shape
-    n_u, nth = pd.Uth_off.shape
-    flops = B * polish_flops_per_lane(m, n_u, nth)
-    return bound(nbytes(pd.subset, pd.packed, *args[1:]) + nbytes(*out), flops, torch.float64)
-
-
-def step_bound(args, st) -> tuple[float, str]:
-    """K3 step's bound on this run's data (``iu.step_iu`` arguments and its
-    new state): the inputs (the entry state but its iteration count) and
-    the new state once, and per lane-iteration ``gi_flops_per_lane_iter``
-    with s = m; pend moves as int32 in the kernel."""
-    from .ops import iu
-
-    m = args[2].shape[1]
-    w = st.act.sum(1).double()
-    flops = float((st.iters.double() * gi_flops_per_lane_iter(m, m, w)).sum())
-    entry = [t for f, t in zip(iu.IUState._fields, args[6]) if f != "iters"]
-    moved = sum(nbytes(t) // (2 if t.dtype == torch.int64 else 1)
-                for t in (*args[:6], *entry, *st))
-    return bound(moved, flops, args[2].dtype)
-
-
-def search_bound(fr, res) -> tuple[float, str]:
-    """K3 search entry's bound on this run's data (``IncFrontier.search``
-    of ``fr`` returning ``res``): the inputs (G, G_solve, the lanes' bounds
-    and theta terms, HinvET, H, the masks) and the outputs once, and per
-    lane ``gi_flops_per_lane_iter`` for each GI iteration at the
-    incumbent's working set plus ``search_management_flops`` for each
-    round it ran. The root snapshot is scratch and stays out."""
-    arr, step = fr.arr, fr.stepper
-    m, n = arr.G.shape[0], arr.HinvET.shape[0]
-    w = res.inc_active.sum(1).double()
-    flops = float((res.iters.double() * gi_flops_per_lane_iter(m, m, w)).sum()
-                  + res.rounds.double().sum() * search_management_flops(m, n))
-    moved = nbytes(step.G, step.Gs, step.immut, fr.du_t, fr.dl_t, arr.is_eq, arr.up_finite,
-                   arr.lo_finite, fr.branchable_rows, arr.HinvET, arr.H, fr.U0, fr.f_t, *res)
-    return bound(moved, flops, torch.float32)
 
 
 # -- the program's spans and counters ----------------------------------------

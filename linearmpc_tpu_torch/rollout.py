@@ -13,14 +13,15 @@ outputs allocated once, and theta's parts into one buffer in place. A part
 given per lane is written once; a trajectory is read at min(k, T - 1), so
 nothing is padded.
 
-A float32 engine steps through the warm step of its tier, the kernels on
-CUDA and their plain versions on the CPU: ``fused_rollout_solve`` (K1 and
-K2) at small m, ``fused_rollout_solve_iu`` (K3) with the carried masked
-inverse R, or ``fused_rollout_solve_ciu`` (K4) with the carried slot
-assignment and slot inverse, as ``linearmpc_tpu/rollout.py:207-246``
-does. Its state is carried in float32 as in the JAX package
-(``rollout.py:92,211``), and the float64 controls are cast to float32. A
-float64 engine steps through the exact path of ``SolverEngine.solve_batch``.
+The engine chooses each step's solve (``SolverEngine.warm_step``, from the
+carry of ``warm_carry``): a float32 engine steps through the warm step of
+its tier, the kernels on CUDA and their plain versions on the CPU, K1 and
+K2 at small m, K3 with the carried masked inverse R, or K4 with the
+carried slot assignment and slot inverse, as
+``linearmpc_tpu/rollout.py:207-246`` does. Its state is carried in float32
+as in the JAX package (``rollout.py:92,211``), and the float64 controls
+are cast to float32. A float64 engine steps through the exact path of
+``SolverEngine.solve_batch``.
 """
 
 from __future__ import annotations
@@ -124,18 +125,6 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
 
     m = engine.ldp.m
 
-    def solve_step(theta, lam, act, side, carry):
-        """(U, lam, act, side, iters, status, carry) of one warm-started
-        step; ``carry`` is the large-m tiers' carried inverse."""
-        if engine.path == "small":
-            return (*engine.fused_rollout_solve(theta, lam, act, side), carry)
-        if engine.path == "iu":
-            return engine.fused_rollout_solve_iu(theta, lam, act, side, carry)
-        if engine.path == "compact":
-            return engine.fused_rollout_solve_ciu(theta, lam, act, side, carry)
-        sol = engine.solve_batch(theta, warm=(lam, act, side))
-        return sol.U, sol.lam, sol.active, sol.side, sol.iters, sol.status, carry
-
     # theta = [xhat; r; d; u_prev; p]: where each part starts
     o_r = nx_
     o_d = o_r + nr
@@ -204,8 +193,7 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
         lam = torch.zeros((B, m), dtype=dtype, device=dev)
         act = torch.zeros((B, m), dtype=torch.bool, device=dev)
         side = torch.ones((B, m), dtype=torch.bool, device=dev)
-        carry = (engine.iu_R0_init(B) if engine.path == "iu"
-                 else engine.ciu_carry_init(B) if engine.path == "compact" else None)
+        carry = engine.warm_carry(B)
         for kk in range(N):
             with span("lmpc.rollout.step"):
                 with span("lmpc.rollout.theta"):
@@ -239,7 +227,7 @@ def build_rollout(mpc, *, plant=None, use_observer=None):
                         theta[:, o_u:o_p] = us[kk - 1][:, :nuprev]
 
                 with span("lmpc.rollout.solve"):
-                    U, lam_n, act, side, iters_n, status_n, carry = solve_step(
+                    U, lam_n, act, side, iters_n, status_n, carry = engine.warm_step(
                         theta, lam, act, side, carry)
 
                 with span("lmpc.rollout.plant"):

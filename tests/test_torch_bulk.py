@@ -1,8 +1,8 @@
 """K1, the bulk dual active-set phase: the port's plain version against the
 JAX package's Pallas kernel (interpret mode) and its float64 XLA loop.
 
-The CUDA kernel itself runs only on a card (``tests/test_torch_gpu.py``
-and ``chip_smoke.py``), where it is held against ``phase1_plain``.
+The CUDA kernel itself runs only on a card (``tests/test_torch_gpu.py``),
+where it is held against ``phase1_plain``.
 """
 
 import jax

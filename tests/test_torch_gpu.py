@@ -29,6 +29,17 @@ float64 instantiation against the CPU ``LexSolver``. The offline analyses
 run no kernel of their own: the float64 LP oracle on the card against its
 CPU run, invpend's explicit enumeration on the card against the CPU's, and
 batched point location on the card against host ``evaluate``.
+
+Then every path at the shapes it runs at: the small-m, IU and compact
+tiers' cold batches against the NumPy oracle, K3/K4 at the paths' own
+shapes and on the launches the paths make, the three rollouts against the
+CPU float64 rollout with each path's exact kernel launches, the hybrid
+search's launch plan, syncs and starved budget rule, the closed-loop
+satellite, the contact problem against the CPU float64 frontier and its
+fixed-binary optimum, the single solves' launches, the float64 engine and
+a non-symmetric H, the LP oracle and explicit MPC against HiGHS,
+certification over invpend's whole range, the generated and explicit C
+and the native runtime against the card, and mp-Schur at m = 1024.
 """
 
 import numpy as np
@@ -229,18 +240,27 @@ def _same(out_k, out_p):
             assert torch.equal(a, b)
 
 
-def _box(k_hi, B, seed, Np=50, box=12.0):
-    """invpend Np/8 with the +-18 state box on ks 2..k_hi-1 on the card
-    (m = 48 at k_hi = 12, 128 at 32, 160 at 40) and B thetas."""
-    if not torch.cuda.is_available():
+def _box_mpc(k_hi, Np=50, device="cuda", dtype=torch.float32):
+    """invpend Np/8 with the +-18 state box on ks 2..k_hi-1 (m = 48 at
+    k_hi = 12, 128 at 32, 160 at 40), set up on ``device``."""
+    if device == "cuda" and not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     mpc, _ = tmpc.mpc_examples("invpend", Np, 8)
     mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4),
                        ks=range(2, k_hi))
-    mpc.setup(device="cuda", dtype=torch.float32)
+    return mpc.setup(device=device, dtype=dtype)
+
+
+def _box_thetas(B, seed, box=12.0, device="cuda"):
+    """x and r in +-box, u_prev in +-2."""
     rng = np.random.default_rng(seed)
     th = np.hstack([rng.uniform(-box, box, (B, 6)), rng.uniform(-2, 2, (B, 1))])
-    return mpc.engine, torch.as_tensor(th, device="cuda")
+    return torch.as_tensor(th, device=device)
+
+
+def _box(k_hi, B, seed, Np=50, box=12.0):
+    """The box problem's engine on the card and B thetas."""
+    return _box_mpc(k_hi, Np).engine, _box_thetas(B, seed, box)
 
 
 @pytest.mark.parametrize("B", [1, 17, 8193])
@@ -987,5 +1007,738 @@ def test_mp_schur_on_card_world_of_one():
                 assert np.max(np.abs(sol.U[i].cpu().numpy() - U_r)) <= 1e-8
                 n += 1
         assert n >= 8
+    finally:
+        dist.destroy_process_group()
+
+
+# -- the paths at their own shapes: tiers against the oracle, rollouts -------
+
+
+def _oracle_check(ldp, th, U, status=None):
+    """(max |U - U_oracle| over the lanes the NumPy oracle solves, lanes
+    whose status contradicts the oracle's verdict of 1 or -3)."""
+    from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
+
+    err, wrong = 0.0, 0
+    for i, t in enumerate(th):
+        U_ref, *_rest, s_ref = solve_ldp_numpy(ldp, t)
+        if s_ref == 1:
+            err = max(err, float(np.abs(U[i] - U_ref).max()))
+        if status is not None and s_ref in (1, -3):
+            wrong += int(status[i] != s_ref)
+    return err, wrong
+
+
+def _counts():
+    """Every kernel's launch counter; the finish's gathers apart from its
+    merges."""
+    from linearmpc_tpu_torch.ops import iu_epilogue, roll_finish
+
+    return dict(bulk=bulk.LAUNCHES, polish=polish.LAUNCHES, iu=iu.LAUNCHES, ciu=ciu.LAUNCHES,
+                iu_epilogue=iu_epilogue.LAUNCHES,
+                gather=roll_finish.LAUNCHES - roll_finish.MERGE_LAUNCHES,
+                merge=roll_finish.MERGE_LAUNCHES)
+
+
+def _launched(before):
+    torch.cuda.synchronize()
+    return {k: v - before[k] for k, v in _counts().items()}
+
+
+@pytest.mark.parametrize("case", ["invpend", "invpend 50/10"])
+def test_small_tier_cold_batch_matches_oracle(case):
+    """The small-m tier's cold batch of 32,768 lanes over the example's
+    range: U within 1e-9 of the oracle on the first 256 lanes the oracle
+    solves; on invpend every lane status 1 with finite U, K1 and K2
+    launched."""
+    mpc, th = _small(SMALL_CASES[case], 32768, seed=2)
+    eng = mpc.engine
+    before = _counts()
+    sol = eng.solve_batch(th)
+    err, _ = _oracle_check(eng.ldp, th[:256].cpu().numpy(), sol.U[:256].cpu().numpy())
+    assert err <= 1e-9
+    if case == "invpend":
+        n = _launched(before)
+        assert n["bulk"] > 0 and n["polish"] > 0
+        assert bool(torch.isfinite(sol.U).all()) and bool((sol.status == 1).all())
+
+
+@pytest.mark.parametrize("entry", ["cold f32", "cold f64", "warm retry"])
+@pytest.mark.parametrize("kind", ["iu", "ciu"])
+def test_gi_kernel_at_the_paths_shape_matches_plain(kind, entry):
+    """K3 at the IU path's m = 48 and K4 at the compact path's m = 128
+    (invpend 50/8 with the +-18 box), B = 8192: cold in float32 from the
+    tier's own carry (K4 capped at ``bulk_cap_p``), cold in float64 from
+    the entry inverse (K4 at the guard's ``up8(2 s_max)`` slots), and warm
+    from the float32 cold state with its carried inverse and the warm-ray
+    retry, some lanes flagged from their warm start."""
+    B = 8192
+    eng, th = _box(12 if kind == "iu" else 32, B, seed=8, box=12.0 if kind == "iu" else 10.0)
+    assert (eng.path, eng.ldp.m) == (("iu", 48) if kind == "iu" else ("compact", 128))
+    dtype = torch.float64 if entry == "cold f64" else torch.float32
+    args, kw = _gi_inputs(eng, th, dtype), _gi_kw(eng, dtype)
+    hi = eng.arrays_hi
+    if kind == "iu":
+        fn, plain = iu.phase1_iu, iu.phase1_iu_plain
+        carry = ((iu.init_R_batch(hi.G_solve, args[7]),) if dtype == torch.float64
+                 else (eng.iu_R0_init(B),))
+    else:
+        fn, plain = ciu.phase1_ciu, ciu.phase1_ciu_plain
+        if dtype == torch.float64:
+            Rw0, sl0, _ = ciu.init_compact_batch(hi.G_solve, args[7], ciu.up8(2 * eng.ciu_s_max))
+            carry = (sl0, Rw0)
+        else:
+            carry, kw = eng._ciu_cold_carry(B), dict(kw, max_iter=eng.bulk_cap_p)
+    if entry == "warm retry":
+        cold = fn(*args, *carry, **kw)
+        args, kw = _warm(eng, cold, th, 9), _gi_kw(eng, torch.float32)
+        carry = (cold[6],) if kind == "iu" else (cold[7], cold[8])
+        assert bool(fn(*args, *carry, **kw)[5].any())  # the retry has lanes to reset
+        kw = dict(kw, retry_infeas=True)
+    _same(fn(*args, *carry, **kw), plain(*args, *carry, **kw))
+
+
+@pytest.mark.parametrize("kind", ["iu", "compact"])
+def test_largem_tier_at_the_paths_shape_matches_oracle(kind):
+    """The IU tier (m = 48, x and r in +-12) and the compact tier (m = 128,
+    in +-10) cold at B = 8192: K3 or K4 launched, finite U, no lane -1; on
+    the first 128 (IU) or 96 (compact) lanes U within 1e-9 of the oracle
+    where it solves, and no verdict of the oracle contradicted."""
+    n = 128 if kind == "iu" else 96
+    eng, th = _box(12 if kind == "iu" else 32, 8192, seed=9, box=12.0 if kind == "iu" else 10.0)
+    assert eng.path == kind
+    before = _counts()
+    sol = eng.solve_batch(th)
+    assert _launched(before)["iu" if kind == "iu" else "ciu"] > 0
+    assert bool(torch.isfinite(sol.U).all()) and bool((sol.status != -1).all())
+    err, wrong = _oracle_check(eng.ldp, th[:n].cpu().numpy(), sol.U[:n].cpu().numpy(),
+                               sol.status[:n].cpu().numpy())
+    assert err <= 1e-9 and wrong == 0
+
+
+def test_compact_tier_lane_past_its_guards_ends_infeasible():
+    """The lane of ``tests/data/compact_lane1929.npz`` alone on the card's
+    compact tier (m = 128): its float64 guard and first ladder pass fail,
+    the last through an overflowed inverse, and it ends -3 with finite
+    controls, as the JAX package's guard returns it."""
+    from pathlib import Path
+
+    eng = _box_mpc(32).engine
+    theta = np.load(Path(__file__).parent / "data" / "compact_lane1929.npz")["theta"]
+    sol = eng.solve_batch(torch.as_tensor(theta[None], device="cuda"))
+    assert int(sol.status[0]) == -3 and bool(torch.isfinite(sol.U).all())
+
+
+@pytest.mark.parametrize("launch", ["K4 second chance", "K3 warm rollout step",
+                                    "K4 warm rollout step"])
+def test_gi_path_launch_matches_plain(launch):
+    """K3/K4 launches the large-m paths make, recorded and replayed against
+    the plain versions: the compact tier's second chance (its ``s2`` slots,
+    warm, with the retry) in a cold batch of 8192, and the 11th warm step of
+    a rollout from x0 in +-0.25, K3 at 4096 lanes and K4 at 2048; one launch
+    a rollout step."""
+    k3 = launch.startswith("K3")
+    mod, name, plain = ((iu, "phase1_iu", iu.phase1_iu_plain) if k3
+                        else (ciu, "phase1_ciu", ciu.phase1_ciu_plain))
+    mpc = _box_mpc(12 if k3 else 32)
+    eng = mpc.engine
+    if launch == "K4 second chance":
+        calls = _record(ciu, "phase1_ciu", lambda: eng.solve_batch(_box_thetas(8192, 10, 10.0)))
+        a, k = next(c for c in calls if c[0][9].shape[1] == eng._ciu_s2
+                    and c[1].get("retry_infeas"))
+    else:
+        B = 4096 if k3 else 2048
+        x0s = np.random.default_rng(3).uniform(-0.25, 0.25, (B, 4))
+        calls = _record(mod, name,
+                        lambda: tmpc.build_rollout(mpc)(x0s, np.zeros((B, 2)), None, N=11))
+        assert len(calls) == 11
+        a, k = calls[10]
+    _same(getattr(mod, name)(*a, **k), plain(*a, **k))
+
+
+# each path's closed loop: problem, lanes, steps, x0 box, lanes held to the
+# CPU float64 rollout, and its launches on the card
+ROLLOUTS = {
+    "small": (lambda d, t: tmpc.mpc_examples("invpend")[0].setup(device=d, dtype=t),
+              4096, 500, 0.5, 8, lambda N: dict(bulk=2 * N, polish=2 * N, gather=N, merge=N)),
+    "iu": (lambda d, t: _box_mpc(12, device=d, dtype=t), 4096, 500, 0.25, 8,
+           lambda N: dict(iu=N, iu_epilogue=N)),
+    "compact": (lambda d, t: _box_mpc(32, device=d, dtype=t), 2048, 300, 0.25, 0,
+                lambda N: dict(ciu=N)),
+}
+
+
+@pytest.mark.parametrize("path", list(ROLLOUTS))
+def test_rollout_on_card(path):
+    """The float32 closed loop on the card from x0 in the box, r = 0: every
+    step status 1 and finite values; the first lanes' controls within
+    1e-5 (1 + |u|) of the CPU float64 rollout (state carried in float32 on
+    the card); and exactly the path's launches: K1 and K2 twice a step (the
+    float64 finish's again), one finish gather and merge a step (small m);
+    K3 and the epilogue once a step (IU); K4 once a step (compact)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    make, B, N, box, n_ref, launches = ROLLOUTS[path]
+    mpc = make("cuda", torch.float32)
+    assert mpc.engine.path == path
+    x0s, rs = np.random.default_rng(6).uniform(-box, box, (B, 4)), np.zeros((B, 2))
+    before = _counts()
+    res = tmpc.build_rollout(mpc)(x0s, rs, None, N=N)
+    assert _launched(before) == {**dict.fromkeys(before, 0), **launches(N)}
+    assert bool((res.status == 1).all())
+    assert all(bool(torch.isfinite(t).all()) for t in (res.xs, res.us, res.ys))
+    if n_ref:
+        ref = tmpc.build_rollout(make("cpu", torch.float64))(x0s[:n_ref], rs[:n_ref], None, N=N)
+        us = res.us[:n_ref].double().cpu()
+        assert ((us - ref.us).abs() / (1.0 + ref.us.abs())).max().item() <= 1e-5
+
+
+# -- hybrid, lexicographic and contact paths ----------------------------------
+
+
+def _binary_offset(mpc, U, lanes):
+    """Largest distance of a binary control to its nearer finite bound over
+    ``lanes`` and every binary move of the horizon."""
+    nu = mpc.model.nu
+    U = U[lanes].reshape(int(lanes.sum()), -1, nu)
+    n_bin = U.shape[1] if mpc.Nc_binary < 0 else mpc.Nc_binary
+    worst = 0.0
+    for b in mpc.binary_controls:
+        u = U[:, :n_bin, b]
+        off = np.full(u.shape, np.inf)
+        for bnd in (mpc.umin[b], mpc.umax[b]):
+            if np.isfinite(bnd):
+                off = np.minimum(off, np.abs(u - bnd))
+        worst = max(worst, float(off.max()) if off.size else 0.0)
+    return worst
+
+
+def _sync_sites(fn):
+    """file:line of each synchronizing call ``fn`` makes (the sync debug
+    mode "warn")."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{w.filename}:{w.lineno}" for w in caught if "synchroniz" in str(w.message)]
+
+
+def test_hybrid_search_on_card_at_its_batch():
+    """The satellite through setup() (float32 on the card, m = 60, 40
+    binary rows) at B = 512: one search entry launch on the 32-thread team
+    and no step launch; no lane -1, and finite controls with every binary
+    on a bound (1e-5) where an incumbent was found; no host sync in the
+    entry's call; a launch of the round-by-round run enters with pending
+    rows and branched equality rows; with the node limit starved to 24 on
+    the first 64 lanes every lane ends 1 or 2, some 2, binaries on a bound,
+    no status-1 lane off the unstarved optimum and no status-2 lane below
+    it, by 1e-6 (1 + |f|)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("satellite")
+    eng = mpc.setup().engine
+    assert eng.device.type == "cuda" and eng.dtype == torch.float32 and eng.bnb_mode == "inc"
+    th = torch.as_tensor(np.random.default_rng(18).uniform(-1.0, 1.0, (512, eng.ldp.n_theta)),
+                         device="cuda")
+    before = iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES
+    sol = eng.solve_batch(th)
+    assert (iu.SEARCH_LAUNCHES, iu.STEP_LAUNCHES) == (before[0] + 1, before[1])
+    assert sol.U.is_cuda and iu.last_plan("inc_search")["team"] == 32
+    st, U = sol.status.cpu().numpy(), sol.U.double().cpu().numpy()
+    found = (st == 1) | (st == 2)
+    assert (st != -1).all() and np.isfinite(U[found]).all()
+    assert _binary_offset(mpc, U, found) <= 1e-5
+    fr = eng.inc_frontier()
+    fr.search(th)
+    assert _sync_sites(lambda: fr.search(th)) == []
+    calls = _record(iu, "step_iu", lambda: _kernel_rounds(eng.inc_frontier(), th))
+    n_eq = int(eng.ldp.is_eq.sum())
+    assert any(int((a[6].pend >= 0).sum()) > 0 and int(a[4].sum(1).max()) > n_eq
+               for a, _k in calls)
+    fr_s = eng.inc_frontier()
+    fr_s.node_limit = 24
+    sol_s = fr_s.finish(fr_s.search(th[:64]))
+    st_s, U_s = sol_s.status.cpu().numpy(), sol_s.U.double().cpu().numpy()
+    assert ((st_s == 1) | (st_s == 2)).all() and (st_s == 2).any()
+    assert _binary_offset(mpc, U_s, st_s > 0) <= 1e-5
+    f_s, f_opt = sol_s.fval.double().cpu().numpy(), sol.fval[:64].double().cpu().numpy()
+    tol = 1e-6 * (1.0 + np.abs(f_opt))
+    assert not (np.abs(f_s - f_opt) > tol)[st_s == 1].any()
+    assert not (f_s < f_opt - tol)[st_s == 2].any()
+
+
+def test_closed_loop_satellite_on_card():
+    """The satellite at Np = 20 with reference preview through setup(): 20
+    steps of ``simulate_kw`` toward y0 = 0.5 from step 5 (the case of
+    ``tests/test_hybrid.py``) on the card; y0 ends within 1e-3 of 0.5 and
+    every binary control sits on a bound (1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("satellite", 20)
+    mpc.settings.reference_preview = True
+    mpc.setup()
+    assert mpc.engine.device.type == "cuda"
+    N = 20
+    rs = np.vstack([np.hstack([np.zeros((1, 5)), 0.5 * np.ones((1, N - 5))]), np.zeros((2, N))])
+    F, G = np.asarray(mpc.model.F), np.asarray(mpc.model.G)
+    sim = tmpc.simulate_kw(mpc, x0=np.zeros(3), N=N, r=rs,
+                           dynamics=lambda x, u, d: F @ x + G @ np.atleast_1d(u))
+    us = np.asarray(sim.us)
+    for b in mpc.binary_controls:
+        assert np.all(np.isclose(us[b], mpc.umin[b], atol=1e-5)
+                      | np.isclose(us[b], mpc.umax[b], atol=1e-5))
+    assert abs(float(sim.ys[0, -1]) - 0.5) < 1e-3
+
+
+def test_lex_levels_k1_launches_match_plain():
+    """The two-level lexicographic problem (m = 7) through setup() at
+    B = 8192: U in float64 on the card, every lane status 1, the first 256
+    lanes within 1e-9 of the CPU LexSolver, and each level's K1 float64
+    launch replayed against ``phase1_plain``, entry for entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    eng = _lex_bench(None).engine
+    assert eng.device.type == "cuda" and eng.path == "lex" and eng.ldp.m <= bulk.MAX_M
+    th = torch.as_tensor(np.random.default_rng(20).uniform(-2.0, 2.0, (8192, eng.ldp.n_theta)),
+                         device="cuda")
+    sols = []
+    calls = _record(bulk, "phase1", lambda: sols.append(eng.solve_batch(th)))
+    sol = sols[0]
+    assert len(calls) == len(eng.lex.levels)
+    assert sol.U.is_cuda and sol.U.dtype == torch.float64 and bool((sol.status == 1).all())
+    ref = _lex_bench("cpu").engine.solve_batch(th[:256].cpu())
+    assert (sol.U[:256].cpu() - ref.U).abs().max().item() <= 1e-9
+    for a, k in calls:
+        _k1_equal(a, k)
+
+
+def test_contact_rounds_on_card_match_cpu_f64_frontier():
+    """invpend_contact at Np = 4 (m = 88, 16 binary rows) through setup():
+    the float32 frontier rounds on the card at B = 4 against the CPU
+    float64 frontier (status 1 on the same lanes, fval within 1e-6 (1 +
+    |f|)), no lane -1, finite controls and binaries on a bound (1e-5) where
+    an incumbent was found; the float64 engine's Cholesky frontier on the
+    card on the same lanes, statuses equal to the CPU's and fval within
+    1e-6; and one host sync in a poll of the rounds mid-search at B = 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend_contact", 4, 4)
+    eng = mpc.setup().engine
+    assert eng.device.type == "cuda" and eng.dtype == torch.float32 and eng.bnb_mode == "rounds"
+    th = np.random.default_rng(3).uniform(-0.3, 0.3, (16, eng.ldp.n_theta))
+    sol = eng.solve_batch(torch.as_tensor(th[:4], device="cuda"))
+    st, U = sol.status.cpu().numpy(), sol.U.double().cpu().numpy()
+    found = (st == 1) | (st == 2)
+    assert sol.U.is_cuda and (st != -1).all() and np.isfinite(U[found]).all()
+    assert _binary_offset(mpc, U, found) <= 1e-5
+    ref = tmpc.mpc_examples("invpend_contact", 4, 4)[0].setup(
+        device="cpu", dtype=torch.float64).engine.solve_batch(th[:4])
+    ok, f_ref = ref.status.numpy() == 1, ref.fval.numpy()
+    rel = lambda f: (np.abs(f - f_ref) / (1.0 + np.abs(f_ref)))[ok]
+    assert np.array_equal(st == 1, ok) and (rel(sol.fval.double().cpu().numpy()) <= 1e-6).all()
+    e64 = tmpc.mpc_examples("invpend_contact", 4, 4)[0].setup(
+        device="cuda", dtype=torch.float64).engine
+    assert e64.bnb_mode == "frontier"
+    sol64 = e64.solve_batch(torch.as_tensor(th[:4], device="cuda"))
+    assert torch.equal(sol64.status.cpu(), ref.status)
+    assert (rel(sol64.fval.cpu().numpy()) <= 1e-6).all()
+    fr = eng._rounds
+    held = [fr.init(torch.as_tensor(th, device="cuda"))]
+
+    def rounds(n):
+        for _ in range(n):
+            held[0], active = fr.step(held[0])
+        return active
+
+    rounds(40)
+    assert len(_sync_sites(lambda: bool(rounds(fr.POLL_EVERY)))) == 1
+
+
+def test_contact_bench_shape_incumbents_at_their_fixed_binary_optimum():
+    """The JAX bench's contact shape (Np = 6, m = 142) through setup() at
+    B = 4, on the frontier rounds: every lane finds an incumbent, each
+    within 1e-6 (1 + |f|) of the float64 optimum of its binaries (each
+    binary row fixed on the bound its multipliers favour, the continuous
+    QP re-solved by the NumPy oracle to status 1)."""
+    import dataclasses
+
+    from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, _ = tmpc.mpc_examples("invpend_contact", 6, 6)
+    eng = mpc.setup().engine
+    assert eng.bnb_mode == "rounds"
+    ldp = eng.ldp
+    th = np.random.default_rng(7).uniform(-0.3, 0.3, (4, ldp.n_theta))
+    sol = eng.solve_batch(torch.as_tensor(th, device="cuda"))
+    st = sol.status.cpu().numpy()
+    assert ((st == 1) | (st == 2)).all()
+    b = np.asarray(ldp.is_binary)
+    for t, lm, f in zip(th, sol.lam.cpu().numpy(), sol.fval.cpu().numpy()):
+        dt, c = ldp.Dth @ t, ldp.G @ lm
+        up = (np.where(ldp.up_finite, ldp.du + dt + c, np.inf)
+              <= np.where(ldp.lo_finite, -(ldp.dl + dt) - c, np.inf))
+        d = np.where(up, ldp.du, ldp.dl)
+        fixed = dataclasses.replace(ldp, du=np.where(b, d, ldp.du), dl=np.where(b, d, ldp.dl),
+                                    is_eq=np.asarray(ldp.is_eq) | b)
+        U, *_rest, status = solve_ldp_numpy(fixed, t, max_iter=5000)
+        assert status == 1
+        f_np = 0.5 * U @ ldp.H @ U + (ldp.f + ldp.f_theta @ t) @ U
+        assert abs(f - f_np) / (1.0 + abs(f_np)) <= 1e-6
+
+
+# -- single solves and the engines that open new routes -----------------------
+
+
+def _lp_infeasible(mpc, theta):
+    """Whether no U meets bl + W theta <= [I; A] U <= bu + W theta (HiGHS on
+    a zero objective)."""
+    from scipy.optimize import linprog
+
+    q = mpc.mpQP
+    E = q.extended_A()
+    up, lo = q.bu + q.W @ theta, q.bl + q.W @ theta
+    fu, fl = np.isfinite(up), np.isfinite(lo)
+    res = linprog(np.zeros(E.shape[1]), A_ub=np.vstack([E[fu], -E[fl]]),
+                  b_ub=np.hstack([up[fu], -lo[fl]]), bounds=(None, None), method="highs")
+    return res.status == 2
+
+
+def test_single_solves_launch_only_their_kernels():
+    """Single solves through setup() on the card: the golden u through
+    ``solve_single`` (1e-6); an infeasible point of the m = 48 box (HiGHS
+    finds no feasible U) reports -3 with finite controls; float32 at
+    m = 11 (256 lanes, batched ``solve_single``) within 1e-9 of the oracle
+    where it solves, no verdict contradicted; m = 0 at the closed form
+    (1e-9), every lane status 1. In all: K1 twice (float32, float64), K3
+    once, nothing else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(23)
+    mpc, _ = tmpc.mpc_examples("invpend")
+    mpc.setup()
+    box = _box_mpc(12)
+    th_x = next(t for t in _box_thetas(64, 23).cpu().numpy() if _lp_infeasible(box, t))
+    mpc11, _ = tmpc.mpc_examples("invpend", 50, 11)
+    eng11 = mpc11.setup().engine
+    assert eng11.path == "single"
+    th11 = _box_thetas(256, 11, 20.0).cpu().numpy()
+    di = tmpc.MPC.from_discrete([[1.0, 0.1], [0.0, 1.0]], [[0.0], [1.0]], C=np.eye(2), Np=5, Nc=3)
+    di.set_objective(Q=[1.0, 1.0], R=[0.1])
+    eng0 = di.setup(dtype=torch.float32).engine
+    th0 = rng.uniform(-1.0, 1.0, (256, eng0.ldp.n_theta))
+    before, u = _counts(), []
+    k1 = _record(bulk, "phase1", lambda: u.append(mpc.compute_control([5.0, 5.0, 0.0, 0.0])))
+    U_x, _f, st_x, _info = box.solve(th_x)
+    sol11 = eng11.solve_batch(th11)
+    sol0 = eng0.solve_batch(th0)
+    assert _launched(before) == dict(bulk=2, polish=0, iu=1, ciu=0, iu_epilogue=0, gather=0,
+                                     merge=0)
+    assert abs(u[0][0] - 1.7612519326) <= 1e-6
+    assert sorted(str(a[2].dtype) for a, _k in k1) == ["torch.float32", "torch.float64"]
+    assert st_x == -3 and np.isfinite(U_x).all()
+    err, wrong = _oracle_check(eng11.ldp, th11, sol11.U.cpu().numpy(), sol11.status.cpu().numpy())
+    assert err <= 1e-9 and wrong == 0
+    U0 = th0 @ eng0.ldp.Uth_off.T + eng0.ldp.u_off
+    assert bool((sol0.status == 1).all()) and np.abs(sol0.U.cpu().numpy() - U0).max() <= 1e-9
+
+
+@pytest.mark.parametrize("case", ["invpend", "m=48"])
+def test_f64_engine_on_card_matches_oracle(case):
+    """The float64 exact path on the card: invpend at B = 4096 (K1's float64
+    instantiation launched) and the m = 48 box at B = 256 (torch ops, no
+    K1): U in float64 on the card, no lane -1, and on the first 256 lanes U
+    within 1e-9 of the oracle where it solves, no verdict contradicted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if case == "invpend":
+        mpc, B = tmpc.mpc_examples("invpend")[0].setup(device="cuda", dtype=torch.float64), 4096
+        th = _box_thetas(B, 64, 20.0)
+    else:
+        mpc, B = _box_mpc(12, dtype=torch.float64), 256
+        th = _box_thetas(B, 48)
+    eng = mpc.engine
+    assert eng.path == "exact"
+    before = bulk.LAUNCHES
+    sol = eng.solve_batch(th)
+    assert (bulk.LAUNCHES > before) == (eng.ldp.m <= bulk.MAX_M) == (case == "invpend")
+    assert sol.U.is_cuda and sol.U.dtype == torch.float64 and bool((sol.status != -1).all())
+    err, wrong = _oracle_check(eng.ldp, th[:256].cpu().numpy(), sol.U[:256].cpu().numpy(),
+                               sol.status[:256].cpu().numpy())
+    assert err <= 1e-9 and wrong == 0
+
+
+def _game(binary, device, dtype):
+    """Two players with their own objectives (a non-symmetric H), player
+    0's control binary or not."""
+    mpc = tmpc.MPC.from_discrete([[1.0, 0.1], [0, 1]], [[0.0, 0], [1, 1]], C=np.eye(2), Np=3)
+    mpc.set_objective(uids=[0], Q=[1, 0], Rr=1e3 * np.eye(1))
+    mpc.set_objective(uids=[1], Q=[0, 1], Rr=1e3 * np.eye(1))
+    mpc.set_bounds(umin=[0.0, -1.0], umax=[1.0, 1.0])
+    if binary:
+        mpc.set_binary_controls([0])
+    return mpc.setup(device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_nonsymmetric_h_on_card_matches_cpu_f64(binary):
+    """The game MPC in float32 on the card at B = 64, without its binary
+    (the small-m tier: K1 and K2 launched) and with it (branch and bound),
+    against the CPU float64 engine: statuses equal, U within 1e-9 (1e-7
+    with the binary)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc = _game(binary, None, torch.float32)
+    eng = mpc.engine
+    rng = np.random.default_rng(23)
+    th = np.stack([mpc.form_parameter(rng.uniform(-2, 2, 2), r=rng.uniform(-1, 1, 2))
+                   for _ in range(64)])
+    before = _counts()
+    sol = eng.solve_batch(torch.as_tensor(th, device="cuda"))
+    n = _launched(before)
+    ref = _game(binary, "cpu", torch.float64).engine.solve_batch(th)
+    assert torch.equal(sol.status.cpu(), ref.status)
+    assert (sol.U.double().cpu() - ref.U).abs().max().item() <= (1e-7 if binary else 1e-9)
+    if not binary:
+        assert n["bulk"] > 0 and n["polish"] > 0
+
+
+def test_aircraft_tier_full_range_on_card():
+    """The small-m tier on aircraft (m = 6) over its whole parameter range
+    at B = 32768: every lane it solves has finite controls."""
+    mpc, th = _small(SMALL_CASES["aircraft"], 32768, seed=24)
+    sol = mpc.engine.solve_batch(th)
+    assert bool(torch.isfinite(sol.U[sol.status == 1]).all())
+
+
+# -- the offline analyses on the card ------------------------------------------
+
+
+def test_chebyshev_batch_on_card_matches_highs():
+    """The float64 LP oracle on the card on 1024 Chebyshev lanes: at least
+    90% converge (gap <= 1e-9), and there the radius is within 1e-7 of
+    HiGHS's with the same sign; ``lp_ipm_batch`` makes no more host syncs
+    at 45 iterations than at 1 (none inside its loop)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from linearmpc_tpu_torch.explicit import _chebyshev_radius
+    from linearmpc_tpu_torch.ops import lp_ipm
+
+    As, bs, lb, ub = _oracle_lanes()
+    r, _c, gap = lp_ipm.chebyshev_batch(As, bs, lb, ub)
+    conv = np.where(gap <= 1e-9)[0]
+    assert len(conv) >= 1024 * 9 // 10
+    for i in conv:
+        A = As[i][np.abs(As[i]).sum(1) > 0]
+        r_h, _c_h = _chebyshev_radius(A, bs[i][: len(A)], lb, ub)  # -inf: empty
+        assert (r[i] > 1e-7) == (r_h > 1e-7)
+        if np.isfinite(r_h):
+            assert abs(r[i] - r_h) <= 1e-7
+    A, b, c, x0 = (torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64, device="cuda")
+                   for a in lp_ipm.chebyshev_lp(As, bs, lb, ub))
+    syncs = [len(_sync_sites(lambda n=n: lp_ipm.lp_ipm_batch(A, b, c, x0, n_iter=n)))
+             for n in (1, 45)]
+    assert syncs[0] == syncs[1]
+
+
+def _explicit_thetas(mpc, prange, B, seed):
+    """theta over the inner 75% of the range in x, r, d and p and the whole
+    range of u_prev (``tests/test_explicit.py``'s draw)."""
+    lo, hi = prange.lower(), prange.upper()
+    nx, nr, nd, nuprev, _np = mpc.get_parameter_dims()
+    scale = np.full(len(lo), 0.75)
+    scale[nx + nr + nd: nx + nr + nd + nuprev] = 1.0
+    rng = np.random.default_rng(seed)
+    return (lo + hi) / 2 + scale * (hi - lo) / 2 * rng.uniform(-1.0, 1.0, (B, len(lo)))
+
+
+@pytest.mark.parametrize("name,n_regions", [("invpend", 93), ("ballplate", 275)])
+def test_explicit_on_card_matches_highs_and_implicit(name, n_regions):
+    """Explicit MPC through setup() with the LP oracle on the card: the
+    regions of the HiGHS enumeration, active set for active set; then
+    ``evaluate_batch`` in float64 on the card at B = 32768: of the first
+    256 lanes at least half inside a region, u within 1e-9 of host
+    ``evaluate`` there, and within 1e-6 of the float64 implicit engine on
+    the card on at least half."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, prange = tmpc.mpc_examples(name)
+    mpc.setup()
+    empc = tmpc.build_explicit(mpc, prange=prange)
+    e_host = tmpc.build_explicit(mpc, prange=prange, oracle="host")
+    assert empc.device.type == "cuda" and empc.stats["ipm_chunks"] > 0
+    sets = sorted(cr.active_set for cr in empc.regions)
+    assert len(sets) == n_regions and sets == sorted(cr.active_set for cr in e_host.regions)
+    th = _explicit_thetas(mpc, prange, 32768, 6)
+    th_dev = torch.as_tensor(th, device="cuda")
+    u, viol = empc.evaluate_batch(th_dev)
+    assert u.is_cuda and u.dtype == torch.float64 and u.shape == (32768, empc.nu)
+    u, viol = u[:256].cpu().numpy(), viol[:256].cpu().numpy()
+    inside = np.where(viol < 1e-8)[0]
+    assert len(inside) >= 128
+    for i in inside:
+        assert np.max(np.abs(u[i] - empc.evaluate(th[i]))) <= 1e-9
+    m64, _ = tmpc.mpc_examples(name)
+    m64.setup(device="cuda", dtype=torch.float64)
+    sol = m64.engine.solve_batch(th_dev[:256])
+    u_imp = sol.U.cpu().numpy()[:, :m64.model.nu] - th[:256, :m64.model.nx] @ m64.K.T
+    both = (viol < 1e-8) & (sol.status.cpu().numpy() == 1)
+    assert both.sum() >= 128 and np.abs(u - u_imp)[both].max() <= 1e-6
+
+
+def test_explicit_tree_and_checkpoint_on_card(tmp_path):
+    """invpend's explicit controller built on the card's oracle: its BST at
+    leaf size 3 descends exactly (``tests/test_explicit.py``'s check on 200
+    points: each descent ends in a leaf holding a region that contains
+    theta, whose law gives the scan's u within 1e-9, on more than 120
+    points); ``save_explicit`` / ``load_explicit`` keep the card and u bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    mpc, prange = tmpc.mpc_examples("invpend")
+    mpc.setup()
+    empc = tmpc.build_explicit(mpc, prange=prange)
+    empc.build_tree(leaf_size=3)
+    A, b, kids, leaf_off, leaf_reg, depth, _root = empc.bst_arrays()
+    rng = np.random.default_rng(11)
+    n_checked = 0
+    for _ in range(200):
+        theta = np.concatenate([rng.uniform(-15, 15, 4), rng.uniform(-15, 15, 2),
+                                rng.uniform(-2, 2, 1)])
+        u_scan = empc.evaluate(theta)
+        if u_scan is None:
+            continue
+        node = 0
+        for _d in range(depth + 1):
+            node = kids[node, 1] if A[node] @ theta - b[node] > 0 else kids[node, 0]
+            if node < 0:
+                break
+        assert node < 0
+        hit = [r for r in leaf_reg[leaf_off[-node - 1]:leaf_off[-node]]
+               if np.max(empc.regions[r].Ath @ theta - empc.regions[r].bth,
+                         initial=-np.inf) <= 1e-8]
+        assert hit
+        cr = empc.regions[hit[0]]
+        assert np.allclose(cr.F[: empc.nu] @ theta + cr.g[: empc.nu], u_scan, atol=1e-9)
+        n_checked += 1
+    assert n_checked > 120
+    path = str(tmp_path / "empc.npz")
+    tmpc.save_explicit(empc, path)
+    back = tmpc.load_explicit(path)
+    th = torch.as_tensor(_explicit_thetas(mpc, prange, 256, 6), device="cuda")
+    assert back.device.type == "cuda"
+    assert torch.equal(back.evaluate_batch(th)[0], empc.evaluate_batch(th)[0])
+
+
+def test_certify_full_range_on_card(monkeypatch):
+    """Iteration certification of invpend over its whole default range with
+    the LP oracle on the card: 8909 regions, worst case 14 iterations, not
+    exhausted, and every IPM call counted as one chunk."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from linearmpc_tpu_torch.ops import lp_ipm
+
+    mpc, prange = tmpc.mpc_examples("invpend")
+    mpc.setup()
+    calls, ipm = [], lp_ipm.lp_ipm_batch
+    monkeypatch.setattr(lp_ipm, "lp_ipm_batch", lambda *a, **k: calls.append(1) or ipm(*a, **k))
+    res = tmpc.certify(mpc, prange=prange)
+    assert not res.exhausted
+    assert len(res.partition) == 8909 and res.max_iterations == 14
+    assert len(calls) == res.stats["ipm_chunks"] > 0
+
+
+# -- deployment, tooling and the mp-Schur solver at the bench's shape ----------
+
+
+def test_generated_c_explicit_c_and_native_runtime_agree_with_card(tmp_path):
+    """invpend through setup(): the generated C (gcc) gives the golden u with
+    flag 1; the explicit controller's C agrees with ``evaluate_batch`` on
+    the card on 256 states (1e-9); the native C++ runtime at B = 512 solves
+    every lane and agrees with the card engine within 1e-9."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from linearmpc_tpu_torch.native_runtime import NativeBatchSolver
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if shutil.which("gcc") is None:
+        pytest.skip("needs gcc")
+    mpc, prange = tmpc.mpc_examples("invpend")
+    mpc.setup()
+    ct = ctypes.c_double
+
+    def control(cpath, theta):
+        so = cpath[:-2] + ".so"
+        subprocess.run(["gcc", "-O2", "-fPIC", "-shared", "-o", so, cpath, "-lm"], check=True)
+        lib = ctypes.CDLL(so)
+        out = []
+        for t in theta:
+            lib.mpc_set_uprev((ct * 1)(t[6]))
+            u = (ct * 8)()
+            out.append((lib.mpc_compute_control(u, (ct * 4)(*t[:4]), (ct * 2)(*t[4:6]), None),
+                        u[0]))
+        return out
+
+    golden = mpc.form_parameter([5.0, 5.0, 0.0, 0.0], uprev=[0.0])[None]
+    (flag, u), = control(tmpc.codegen_c(mpc, str(tmp_path / "c")), golden)
+    assert flag == 1 and abs(u - 1.7612519326) <= 1e-6
+    empc = tmpc.build_explicit(mpc, prange=prange)
+    th = _explicit_thetas(mpc, prange, 256, 28)
+    u_e = np.array([v for _f, v in control(tmpc.codegen_c_explicit(empc, str(tmp_path / "e")),
+                                           th)])
+    u_eval, _viol = empc.evaluate_batch(th)
+    assert u_eval.is_cuda and np.abs(u_e - u_eval[:, 0].cpu().numpy()).max() <= 1e-9
+    th512 = _small(SMALL_CASES["invpend"], 512, seed=281)[1].cpu().numpy()
+    U_n, _it, st_n = NativeBatchSolver(mpc.engine.ldp, nu=mpc.model.nu).solve_batch(th512)
+    sol = mpc.engine.solve_batch(torch.as_tensor(th512, device="cuda"))
+    assert bool((st_n == 1).all()) and np.abs(U_n - sol.U.cpu().numpy()).max() <= 1e-9
+
+
+def test_mp_schur_at_the_bench_shape_and_mesh_rules():
+    """The mp-Schur solver on a 1 x 1 NCCL mesh at the JAX bench's shape
+    (invpend 255/8 with the box on ks 2..255, m = 1024, float64, B = 256):
+    the first 8 lanes the oracle solves are status 1 and within 1e-8.
+    ``attach_mesh`` keeps a problem below its threshold (m = 48) on the
+    single-device path and refuses a hybrid engine."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from linearmpc_tpu_torch.ops.reference_solver import solve_ldp_numpy
+    from linearmpc_tpu_torch.parallel import make_mesh
+
+    mpc, _ = tmpc.mpc_examples("invpend", 255, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, 256))
+    eng = mpc.setup(dtype=torch.float64).engine
+    assert eng.ldp.m == 1024
+    mesh = make_mesh(1, 1)
+    try:
+        eng.attach_mesh(mesh, force=True)
+        th = _box_thetas(256, 31, 5.0)
+        sol = eng.solve_batch(th)
+        assert sol.U.is_cuda
+        U, th, n = sol.U.cpu().numpy(), th.cpu().numpy(), 0
+        for i in range(256):
+            U_r, *_rest, s = solve_ldp_numpy(eng.ldp, th[i])
+            if s == 1:
+                assert int(sol.status[i]) == 1 and np.abs(U[i] - U_r).max() <= 1e-8
+                n += 1
+                if n == 8:
+                    break
+        assert n == 8
+        small = _box_mpc(12, dtype=torch.float64).engine
+        assert small.attach_mesh(mesh)._mp_solver is None
+        with pytest.raises(ValueError, match="hybrid"):
+            tmpc.mpc_examples("satellite")[0].setup().engine.attach_mesh(mesh)
     finally:
         dist.destroy_process_group()

@@ -1,5 +1,4 @@
-"""The port stands alone: it imports neither jax nor linearmpc_tpu, and its
-on-card smoke test refuses to run without a GPU."""
+"""The port stands alone: it imports neither jax nor linearmpc_tpu."""
 
 import math
 import os
@@ -10,11 +9,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 
 
-def _run(code_or_args, cwd=ROOT):
+def _run(code):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["OMP_NUM_THREADS"] = "1"  # the suite's workers share few cores
-    args = code_or_args if isinstance(code_or_args, list) else ["-c", code_or_args]
-    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                           capture_output=True, text=True, timeout=300)
 
 
@@ -33,21 +31,6 @@ def test_import_leaves_jax_out():
     out = _run(code)
     assert out.returncode == 0, out.stderr
     assert abs(float(out.stdout.split()[-1]) - 1.7612519326) < 1e-6
-
-
-def test_chip_smoke_fails_without_cuda():
-    """No GPU here: the smoke test exits non-zero and prints no verdict."""
-    out = _run(["chip_smoke.py"])
-    assert out.returncode != 0
-    assert '"ok"' not in out.stdout
-
-
-def test_chip_smoke_fails_alone(tmp_path):
-    """Copied into a directory without the rest of the repo, it fails."""
-    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
-    out = _run(["chip_smoke.py"], cwd=tmp_path)
-    assert out.returncode != 0
-    assert '"ok"' not in out.stdout
 
 
 def test_largem_modules_leave_jax_out():

@@ -1,8 +1,8 @@
 """K2, the polish tier: the port's float64 plain version against the JAX
 package's double-single Pallas kernel (interpret mode) and its XLA twin.
 
-The CUDA kernel itself runs only on a card (``tests/test_torch_gpu.py``
-and ``chip_smoke.py``), where it is held against ``polish_plain``.
+The CUDA kernel itself runs only on a card (``tests/test_torch_gpu.py``),
+where it is held against ``polish_plain``.
 """
 
 import jax.numpy as jnp

@@ -1,33 +1,23 @@
 """The port's profiling and plotting (``linearmpc_tpu_torch/profiling.py``,
-``plotting.py``) on the CPU: the ``instrument`` counters, the operation
-and byte models that ``chip_smoke.py`` reports its bounds with (one
-definition: the script imports them), a profiler trace, and the figures
-against the JAX package's (polygons and the certification raster within
-1e-9, under matplotlib's Agg backend)."""
+``plotting.py``) on the CPU: the ``instrument`` counters, a profiler trace,
+``overlap_report``'s refusal off the card, and the figures against the JAX
+package's (polygons and the certification raster within 1e-9, under
+matplotlib's Agg backend, which both packages select when they draw)."""
 
 import json
-import sys
-from pathlib import Path
 
-import matplotlib
+import numpy as np
+import pytest
+import torch
 
-matplotlib.use("Agg")
-
-import numpy as np  # noqa: E402
-import pytest  # noqa: E402
-import torch  # noqa: E402
-
-import linearmpc_tpu as J  # noqa: E402
-import linearmpc_tpu_torch as L  # noqa: E402
-from linearmpc_tpu import plotting as jplot  # noqa: E402
-from linearmpc_tpu.explicit import build_explicit as j_build_explicit  # noqa: E402
-from linearmpc_tpu.types import ParameterRange as JRange  # noqa: E402
-from linearmpc_tpu_torch import plotting as pplot  # noqa: E402
-from linearmpc_tpu_torch import profiling as P  # noqa: E402
-from linearmpc_tpu_torch.ops import bulk, iu, polish  # noqa: E402
-from linearmpc_tpu_torch.types import ParameterRange  # noqa: E402
-
-ROOT = Path(__file__).resolve().parent.parent
+import linearmpc_tpu as J
+import linearmpc_tpu_torch as L
+from linearmpc_tpu import plotting as jplot
+from linearmpc_tpu.explicit import build_explicit as j_build_explicit
+from linearmpc_tpu.types import ParameterRange as JRange
+from linearmpc_tpu_torch import plotting as pplot
+from linearmpc_tpu_torch import profiling as P
+from linearmpc_tpu_torch.types import ParameterRange
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -62,70 +52,6 @@ def test_instrument_counts(dtype):
     s = stats.summary()
     assert s["converged_frac"] == 1.0 and s["solves_per_s"] > 0
     assert len(stats.batch_times_s) == 2 and s["p99_batch_latency_s"] > 0
-
-
-def _chip_smoke():
-    sys.path.insert(0, str(ROOT))
-    try:
-        import chip_smoke
-    finally:
-        sys.path.remove(str(ROOT))
-    return chip_smoke
-
-
-def test_chip_smoke_bounds_are_the_models():
-    """The script reports its bounds with profiling's functions, and each
-    equals its model on the same arguments (plain K1, K2 and K3 runs)."""
-    cs = _chip_smoke()
-    for name in ("bound", "gi_bound", "k1_bound", "k2_bound", "step_bound", "nbytes"):
-        assert getattr(cs, name) is getattr(P, name), name
-
-    mpc = L.mpc_examples("invpend")[0].setup(device="cpu", dtype=torch.float32)
-    eng = mpc.engine
-    B, m = 64, eng.ldp.m
-    th = torch.as_tensor(_thetas(1, B, 20.0))
-    du_t, dl_t = eng._bounds32(th)
-    args = (eng.arrays.subset_inv, eng.arrays.G, du_t, dl_t, eng._eq, eng._immut,
-            torch.zeros((B, m)), eng.arrays.is_eq.expand(B, m).contiguous(),
-            torch.ones((B, m), dtype=torch.bool))
-    out = bulk.phase1(*args, max_iter=eng.bulk_cap, primal_tol=eng.primal_tol,
-                      sign_tol=eng.sign_tol)
-    flops = float(out[3].sum()) * (4 * m * m + 10 * m)
-    n_bytes = P.nbytes(*args) + P.nbytes(*out)
-    assert P.k1_bound(args, out) == P.bound(n_bytes, flops, torch.float32)
-    ms, by = P.k1_bound(args, out)
-    assert by == "bytes" and ms == pytest.approx(1e3 * n_bytes / 3.35e12, rel=1e-12)
-
-    pd, act, side = eng._pd, out[1], out[2]
-    out2 = polish.polish(pd, th, act, side)
-    n_u, nth = pd.Uth_off.shape
-    fl2 = B * 2 * (m * nth + 2 * m * m + 2 * n_u * nth + n_u * m + n_u * n_u + 2 * n_u)
-    assert P.k2_bound(pd, (pd, th, act, side), out2) == P.bound(
-        P.nbytes(pd.subset, pd.packed, th, act, side) + P.nbytes(*out2), fl2, torch.float64)
-
-    box, _ = L.mpc_examples("invpend", 30, 8)
-    box.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, 12))
-    e3 = box.setup(device="cpu", dtype=torch.float32).engine
-    m3 = e3.ldp.m
-    th3 = torch.as_tensor(_thetas(2, 16, 12.0))
-    d3, l3 = e3._bounds32(th3)
-    a3 = (e3._G32, e3._Gs32, d3, l3, e3._eq, e3._immut, torch.zeros((16, m3)),
-          e3.arrays.is_eq.expand(16, m3), torch.ones((16, m3), dtype=torch.bool),
-          e3.iu_R0_init(16))
-    o3 = iu.phase1_iu(*a3, max_iter=e3.bulk_cap, primal_tol=e3.primal_tol, sign_tol=e3.sign_tol)
-    w = o3[1].sum(1).double()
-    fl3 = float((o3[3].double() * (8 * m3 * w + 4 * w * w)).sum())
-    assert fl3 == float((o3[3].double() * P.iu_flops_per_lane_iter(m3, w)).sum())
-    assert P.gi_bound(a3, o3) == P.bound(sum(P.nbytes(t) for t in (*a3, *o3)), fl3,
-                                         torch.float32)
-
-
-def test_models():
-    assert P.phase1_flops_per_lane_iter(5) == 150.0
-    assert P.iu_flops_per_lane_iter(48) == 8 * 48 * 48 + 4 * 48 * 48
-    assert P.ciu_flops_per_lane_iter(128, 16, 10) == 2 * (3 * 16 * 10 + 128 * 10) + 400
-    assert P.ciu_bytes_per_lane(128, 16) - P.iu_bytes_per_lane(128) == (
-        2 * 16 * 16 * 4 + 8 * 16 + 1 - 2 * 128 * 128 * 4)
 
 
 def test_trace_writes_chrome_trace(tmp_path):

@@ -122,3 +122,62 @@ def test_preview_and_offset_free_rollouts_match_jax(kind):
     mt.setup(device="cpu")
     us_t = build_rollout(mt)(*args, N=N).us.numpy()
     assert np.max(np.abs(us_t - us_j)) < 1e-8
+
+
+def _state_box(k_hi):
+    """invpend 30/8 with the +-18 state box on ks 2..k_hi-1 (m = 64 at 16)."""
+    mpc, _ = tmpc.mpc_examples("invpend", 30, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, k_hi))
+    return mpc
+
+
+# each path: its problem, dtype, the engine's own warm step (None: solve_batch
+# warm) and the carry of a cold start (None: nothing carried)
+WARM_STEPS = {
+    "small": (lambda: tmpc.mpc_examples("invpend")[0], torch.float32,
+              lambda e, *a: (*e.fused_rollout_solve(*a[:4]), a[4]), lambda e, B: None),
+    "iu": (lambda: tmpc.mpc_examples("crazyflie")[0], torch.float32,
+           lambda e, *a: e.fused_rollout_solve_iu(*a), lambda e, B: e.iu_R0_init(B)),
+    "compact": (lambda: _state_box(16), torch.float32,
+                lambda e, *a: e.fused_rollout_solve_ciu(*a), lambda e, B: e.ciu_carry_init(B)),
+    "exact": (lambda: tmpc.mpc_examples("invpend")[0], torch.float64, None, lambda e, B: None),
+}
+
+
+def _flat(x):
+    return [t for v in x for t in (_flat(v) if isinstance(v, tuple) else [v])]
+
+
+@pytest.mark.parametrize("path", list(WARM_STEPS))
+def test_warm_step_routes_each_tier(path):
+    """``SolverEngine.warm_step`` from ``warm_carry`` is the engine's own
+    warm step of its path, bit for bit: the small-m, IU and compact tiers'
+    fused steps, and ``solve_batch`` warm on the float64 exact path."""
+    make, dtype, own, carry0 = WARM_STEPS[path]
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        eng = make().setup(device="cpu", dtype=dtype).engine
+        assert eng.path == path
+        B, m = 16, eng.ldp.m
+        th = torch.as_tensor(np.random.default_rng(9).uniform(-1, 1, (B, eng.ldp.n_theta)),
+                             dtype=dtype)
+        state = (torch.zeros((B, m), dtype=dtype), torch.zeros((B, m), dtype=torch.bool),
+                 torch.ones((B, m), dtype=torch.bool))
+        carry, cold = eng.warm_carry(B), carry0(eng, B)
+        assert (carry is None) if cold is None else all(
+            torch.equal(a, b) for a, b in zip(_flat([carry]), _flat([cold])))
+        out = eng.warm_step(th, *state, carry)
+        if own is None:
+            sol = eng.solve_batch(th, warm=state)
+            ref = (sol.U, sol.lam, sol.active, sol.side, sol.iters, sol.status, carry)
+        else:
+            ref = own(eng, th, *state, carry)
+        assert len(out) == len(ref) == 7
+        out, ref = _flat(out), _flat(ref)
+        assert len(out) == len(ref)
+        for a, b in zip(out, ref):
+            assert (a is None and b is None) or (a.dtype == b.dtype and torch.equal(a, b))
+        assert bool((out[5] == 1).any())
+    finally:
+        torch.set_num_threads(n)

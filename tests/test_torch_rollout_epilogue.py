@@ -21,7 +21,10 @@ entry: statuses and non-finite entries equal; crazyflie U equal, lam
 within 5.2e-27, R within 1.7e-7 at B = 1 and equal at 64 and 4096;
 invpend U and R equal, lam within 2.2e-21; the closed loop's controls and
 states equal. (At B = 4096 invpend's unresolved lanes, R up to 4e17, part
-by up to 5.5e-3 in U; its status-1 lanes stay equal.)
+by up to 5.5e-3 in U; its status-1 lanes stay equal.) The kernel is also
+held to the plain version, at the same bounds, on the inputs of the 11th
+warm step of the IU path's own rollout (invpend 50/8 with the +-18 state
+box, m = 48, 4096 lanes).
 
 On the CPU: the wrapper refuses a wrong dtype, shape, size or device before
 it builds or launches anything.
@@ -153,6 +156,43 @@ def test_rollout_through_kernel_matches_plain(monkeypatch):
     for i in solves:
         assert [s.name for s in spans if s.parent == i] == ["lmpc.iu.k3", "lmpc.iu.epilogue"]
     assert counts["iu.epilogue_lanes"] == N * B
+
+
+def _box48(device):
+    """invpend at Np = 50, Nc = 8 with the +-18 state box on steps 2-11:
+    the IU path's m = 48."""
+    mpc, _ = L.mpc_examples("invpend", 50, 8)
+    mpc.add_constraint(Ax=np.eye(4), lb=-18 * np.ones(4), ub=18 * np.ones(4), ks=range(2, 12))
+    return _setup(mpc, device)
+
+
+@pytest.mark.gpu
+def test_epilogue_kernel_matches_plain_on_the_iu_rollout_step(monkeypatch):
+    """The kernel against the plain version on the inputs with which the
+    11th warm step of the m = 48 box's 4096-lane rollout (x0 in +-0.25)
+    enters it, every 7th lane from the 5th flagged infeasible and every
+    11th from the 3rd not done: statuses equal, -3, -1 and 1 among them,
+    and the values within the bounds of the other cases."""
+    mpc = _box48("cuda")
+    eng = mpc.engine
+    calls, kernel = [], eng._rollout_epilogue_cuda
+    monkeypatch.setattr(eng, "_rollout_epilogue_cuda", lambda *a: calls.append(a) or kernel(*a))
+    x0 = np.random.default_rng(10).uniform(-0.25, 0.25, (4096, 4))
+    L.build_rollout(mpc)(x0, np.zeros((4096, 2)), None, N=11)
+    assert len(calls) == 11
+    th, act, side, done, infeas, R = calls[10]
+    done, infeas = done.clone(), infeas.clone()
+    infeas[5::7] = True
+    done[3::11] = False
+    args = (th, act, side, done, infeas, R)
+    with full_f32():
+        Uk, lk, sk, Rk = kernel(*args)
+        Up, lp, sp, Rp = eng._rollout_epilogue_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(sk, sp) and {-3, -1, 1} <= set(sk.tolist())
+    _agree(Uk, Up, 1e-6)
+    _agree(lk, lp, 1e-6)
+    _agree(Rk, Rp, 1e-5)
 
 
 @functools.lru_cache(maxsize=1)

@@ -3,8 +3,9 @@ off without a profiler session, and under one on the CPU the stages of the
 IU tier, the branch-and-bound search, the rollout and the single solve,
 nested by time with their parent and call, the counters against what the
 batch used, the shared clock with the profiler's own events, and the
-spans in ``profiling.trace``'s Chrome trace. One test, marked ``gpu``,
-holds a span around a kernel launch to the kernel's device interval.
+spans in ``profiling.trace``'s Chrome trace. Two tests, marked ``gpu``,
+hold a span around a kernel launch to the kernel's device interval, and
+run ``instrument``, ``overlap_report`` and ``trace`` on the card.
 
 The file imports no JAX; on a card:
 ``python -m pytest --noconftest -m gpu tests/test_torch_tracing.py``.
@@ -240,3 +241,33 @@ def test_span_contains_the_kernels_device_interval():
     assert dev, "the profiler recorded no device interval"
     for e in dev:
         assert sp.start_ns <= e.start_ns() <= e.start_ns() + e.duration_ns() <= sp.end_ns
+
+
+@pytest.mark.gpu
+def test_instrument_overlap_and_trace_on_card(tmp_path):
+    """invpend's cold tier through setup() at B = 32768 on the card:
+    ``instrument`` counts every lane of four batches converged;
+    ``overlap_report`` launches K1 and K2; ``trace`` writes a Chrome trace
+    and the batch's spans, the tier's stages in order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from linearmpc_tpu_torch.ops import bulk, polish
+
+    mpc = L.mpc_examples("invpend")[0].setup()
+    e = mpc.engine
+    rng = np.random.default_rng(30)
+    th = torch.as_tensor(np.hstack([rng.uniform(-20, 20, (32768, 6)),
+                                    rng.uniform(-2, 2, (32768, 1))]), device="cuda")
+    stats = L.instrument(e)
+    for _ in range(4):
+        e.solve_batch(th)
+    assert stats.n_solves == 4 * 32768 and stats.summary()["converged_frac"] == 1.0
+    before = bulk.LAUNCHES, polish.LAUNCHES
+    P.overlap_report(L.mpc_examples("invpend")[0].setup(), B=32768)
+    assert bulk.LAUNCHES > before[0] and polish.LAUNCHES > before[1]
+    with P.trace(str(tmp_path / "tr")):
+        e.solve_batch(th)
+        torch.cuda.synchronize()
+    assert (tmp_path / "tr" / "trace.json").stat().st_size > 0
+    assert [s.name for s in P.spans()] == ["lmpc.engine.solve_batch", "lmpc.small.k1",
+                                           "lmpc.small.polish", "lmpc.small.stragglers"]
